@@ -13,14 +13,20 @@ status line:
   2  every kernel against its plain torch version on the card, for the
      four field forms of the main path (MNT4/MNT6 G1 over Fq, MNT4 G2 over
      Fq2, MNT6 G2 over Fq3): K1 on 25 windows x 8192 lanes, T = 8, with
-     zero loads and infinity-flagged rows, K2 on 51200 pairs with P = Q,
+     zero loads and infinity-flagged rows, K2 on 204800 pairs with P = Q,
      P = -Q and identities; exact equality of the limbs; CUDA-event times
-     (the plain versions' after one warm call);
+     at these shapes;
   3  one 2^18-point MNT4 G1 stream MSM against the C++ Pippenger;
   4  the real-cycle mnt4_groth16 IVC chain on the card: setup, the base
      case, a warm step-2 prove, both verified, and the negative check
      (the old message against the newest proof must be rejected); every
-     kernel instantiation must have launched on that path.
+     kernel instantiation must have launched on that path, K1 exactly
+     once per commitment MSM; CUDA-event device time of every launch of
+     the warm step;
+  5  each kernel again on the inputs of its first launch in the warm step
+     (K1: the a-query or b_g2 MSM; K2: the first suffix-scan step),
+     exactly against its plain version, with CUDA-event times: these are
+     the numbers of the `kernels` line.
 Any failure exits non-zero without the final line.  Nothing here imports
 JAX or the JAX package.
 """
@@ -41,12 +47,14 @@ HBM_BYTES_PER_S = 3.35e12
 # INT32 multiply-add: 64 results/clock/SM on sm_90 (CUDA C++ Programming
 # Guide, arithmetic instruction throughput) x 132 SMs x 1.98 GHz boost.
 INT32_MAD_PER_S = 64 * 132 * 1.98e9
-# 32x32 -> 64-bit partial products per Fp^D Montgomery product (CIOS for
-# D = 1: 100 + 10 + 100; D > 1: D^2 wide products, the nr scalings, and D
-# word-by-word reductions of 110), each two multiply-adds (low and high
-# halves).
-PRODUCTS = {1: 210, 2: 400 + 10 + 220, 3: 900 + 30 + 330}
+# 32x32 -> 64-bit partial products per Fp^D Montgomery product, each two
+# multiply-adds (low and high halves): CIOS for D = 1 (100 + 10 + 100);
+# for D > 1 Karatsuba's D (D + 1) / 2 wide products of 100, the nr
+# scalings of 10 limbs, and D word-by-word reductions of 110.
+PRODUCTS = {1: 210, 2: 300 + 10 + 220, 3: 600 + 30 + 330}
 MULS_MADD, MULS_ADD = 17, 18
+# K1 launches per prove of one SNARK: a, b_g1, l and h in G1, b_g2 in G2
+K1_PER_PROVE = {"g1": 4, "g2": 1}
 
 REPLACES = {
     ("madd_accumulate", 1): "pcd_tpu/ops/ec32.py:721",
@@ -158,12 +166,12 @@ def form_cases():
             ("mnt6_298.G1", cyc.help, "g1"), ("mnt6_298.G2", cyc.help, "g2")]
 
 
-def phase_kernels(results, dev="cuda", nwin=25, T=8, L=8192, m=4096,
-                  pairs=51200):
-    """K1 and K2 against their plain versions, all four forms, at the main
-    path's shapes: K1 on the 25 windows x 8192 lanes of a 298-bit-scalar
-    MSM (T = 8, the help circuit's rounds), K2 on the 25 x 2048 bucket
-    columns of the finish's second phase."""
+def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
+    """K1 and K2 against their plain versions, all four forms, with the
+    edge cases: K1 on the 25 windows x 8192 lanes of a 298-bit-scalar MSM
+    (T = 8, the help circuit's rounds) with zero loads and flagged rows,
+    K2 on the 25 x 8192 lanes of the finish's first scan with P = Q,
+    P = -Q and identities."""
     import numpy as np
     import torch
 
@@ -188,25 +196,13 @@ def phase_kernels(results, dev="cuda", nwin=25, T=8, L=8192, m=4096,
         loads = torch.from_numpy(loads_np).to(dev)
         got = ec.madd_accumulate(table, perm, loads)
         want = ec.madd_accumulate_plain(table, perm, loads)
-        plain_ms = device_ms(
-            lambda: ec.madd_accumulate_plain(table, perm, loads), 1, dev,
-            warm=False)
-        err = int((got.long() - want.long()).abs().max())
-        if err:
+        if not torch.equal(got, want):
             raise AssertionError(f"K1 {form}: kernel != plain")
         ms = device_ms(lambda: ec.madd_accumulate(table, perm, loads), 5, dev)
-        # work of this run: active, unflagged gathers
-        pm = perm.cpu().numpy().view(np.uint32) & 0x7FFFFFFF
-        act = np.arange(T)[None, :, None] < loads_np[:, None, :]
-        madds = int((act & ~inf[pm]).sum())
-        nbytes = (table.numel() + perm.numel() + loads.numel()
-                  + got.numel()) * 4
-        results.append(record("madd_accumulate", form, D, err, ms, plain_ms,
-                              nbytes, madds * MULS_MADD * PRODUCTS[D] * 2))
         say(2, f"K1 madd_accumulate {form}: exact on {nwin}x{L} lanes, "
-               f"T={T}; {ms:.3f} ms (plain {plain_ms:.1f} ms)")
+               f"T={T}; {ms:.3f} ms")
         # K2 on pairs built from K1's projective outputs
-        P = got.reshape(-1, 3, D, 10)[:pairs]
+        P = got.reshape(-1, 3, D, 10)
         n = P.shape[0]
         Q = P[torch.randperm(n, device=dev)].clone()
         k = n // 16
@@ -218,21 +214,13 @@ def phase_kernels(results, dev="cuda", nwin=25, T=8, L=8192, m=4096,
         P = P.clone()
         P[3 * k:4 * k] = ec.identity((k,), dev)            # P = O
         got2 = ec.add(P, Q)
-        want2 = ec.complete_add_plain(P, Q)
-        plain2 = device_ms(lambda: ec.complete_add_plain(P, Q), 1, dev,
-                           warm=False)
-        err2 = int((got2.long() - want2.long()).abs().max())
-        if err2:
+        if not torch.equal(got2, ec.complete_add_plain(P, Q)):
             raise AssertionError(f"K2 {form}: kernel != plain")
         # P = -Q must give the identity (Z = 0)
         if bool(got2[k:2 * k, 2].any()):
             raise AssertionError(f"K2 {form}: P + (-P) is not the identity")
-        ms2 = device_ms(lambda: ec.add(P, Q), 10, dev)
-        results.append(record("complete_add", form, D, err2, ms2, plain2,
-                              3 * P.numel() * 4,
-                              n * MULS_ADD * PRODUCTS[D] * 2))
-        say(2, f"K2 complete_add {form}: exact on {n} pairs; {ms2:.3f} ms "
-               f"(plain {plain2:.1f} ms)")
+        ms = device_ms(lambda: ec.add(P, Q), 10, dev)
+        say(2, f"K2 complete_add {form}: exact on {n} pairs; {ms:.3f} ms")
 
 
 def record(kernel, form, D, err, ms, plain_ms, nbytes, mads):
@@ -292,8 +280,67 @@ def phase_msm(dev="cuda", log_n=18):
            f"(points built in {t_gen:.1f}s)")
 
 
+class LaunchProbe:
+    """While `on`, wraps the two kernel wrappers of ops/ec.py: the first
+    call per (kernel, curve) keeps its inputs, and every call on the card
+    gets CUDA events around it on the caller's current stream (the MSM
+    side stream in the prover's background thread).  The wrappers' launch
+    counters are untouched; leaving the `with` restores the wrappers."""
+
+    def __init__(self):
+        self.on = False
+        self.first = {}      # (kernel, curve name) -> (ECCtx, args)
+        self.events = []     # ((kernel, curve name), start, end)
+
+    def __enter__(self):
+        import torch
+
+        from pcd_tpu_torch.ops.ec import ECCtx
+
+        self._orig = (ECCtx.madd_accumulate, ECCtx.add)
+
+        def wrap(kernel, fn):
+            def probed(ctx, *args):
+                if not self.on:
+                    return fn(ctx, *args)
+                key = (kernel, ctx.name)
+                self.first.setdefault(key, (ctx, args))
+                if args[0].device.type != "cuda":
+                    return fn(ctx, *args)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(ctx, *args)
+                b.record()
+                self.events.append((key, a, b))
+                return out
+            return probed
+
+        ECCtx.madd_accumulate = wrap("madd_accumulate", self._orig[0])
+        ECCtx.add = wrap("complete_add", self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        from pcd_tpu_torch.ops.ec import ECCtx
+
+        ECCtx.madd_accumulate, ECCtx.add = self._orig
+
+    def device_ms(self):
+        """{(kernel, curve name): summed CUDA-event ms of its launches}."""
+        import torch
+
+        if self.events:
+            torch.cuda.synchronize()
+        out = {}
+        for key, a, b in self.events:
+            out[key] = out.get(key, 0.0) + a.elapsed_time(b)
+        return out
+
+
 def phase_chain(factory=None, dev=None):
-    """The real-cycle mnt4_groth16 chain on the card."""
+    """The real-cycle mnt4_groth16 chain on the card.  Returns the launch
+    counts of the main path (base case + warm step) and the probe of the
+    warm step."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
     from pcd_tpu_torch.pcd.api import FpPredicate
@@ -310,6 +357,8 @@ def phase_chain(factory=None, dev=None):
     t0 = time.perf_counter()
     pcd = (factory or configs.mnt4_groth16)(dev)   # None: the card
     dev = pcd.ic.main_snark.device
+    # on the CPU (a rehearsal) the wrappers count plain-version calls
+    counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
     F = pcd.ic.main_field
     pred = Counter(F)
     rng = ChaChaRng(b"chip smoke mnt4_groth16")
@@ -321,17 +370,20 @@ def phase_chain(factory=None, dev=None):
     proof_1 = pcd.prove(pk, pred, one, one, [], [], rng)
     sync(dev)
     secs["prove_base"] = time.perf_counter() - t0
-    base_counts = ec.launch_counts()
+    base_counts = counter()
     profiling.reset()
     profiling.enable()
-    t0 = time.perf_counter()
-    proof_2 = pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
-    sync(dev)
-    secs["prove_step2_warm"] = time.perf_counter() - t0
+    with LaunchProbe() as probe:
+        probe.on = True
+        t0 = time.perf_counter()
+        proof_2 = pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
+        sync(dev)
+        secs["prove_step2_warm"] = time.perf_counter() - t0
+        probe.on = False
     profiling.enable(False)
     spans = {k: round(v[0], 3) for k, v in profiling.totals().items()
              if v[0] >= 0.05}
-    counts = ec.launch_counts()                    # the main path ended
+    counts = counter()                             # the main path ended
     step2 = {k: v - base_counts.get(k, 0) for k, v in counts.items()}
     t0 = time.perf_counter()
     ok1 = pcd.verify(vk, pred, one, proof_1)
@@ -354,17 +406,82 @@ def phase_chain(factory=None, dev=None):
         {f"{k}[{f}]": v for (k, f), v in sorted(counts.items())}))
     say(4, "launches per warm step: " + json.dumps(
         {f"{k}[{f}]": v for (k, f), v in sorted(step2.items())}))
-    if dev.type != "cuda":
-        counts = ec.plain_counts()                 # rehearsal on the CPU
+    dms = probe.device_ms()
+    say(4, "kernel device ms per warm step (CUDA events): " + json.dumps(
+        {f"{k}[{f}]": round(v, 3) for (k, f), v in sorted(dms.items())})
+        + f"; all kernels {sum(dms.values()):.1f} ms of the "
+          f"{secs['prove_step2_warm'] * 1e3:.0f} ms step")
     cyc = pcd.ic.cycle
-    forms = [c.name for c in (cyc.main.g1, cyc.main.g2, cyc.help.g1,
-                              cyc.help.g2)]
+    forms = [(c.name, grp) for cfg in (cyc.main, cyc.help)
+             for grp, c in (("g1", cfg.g1), ("g2", cfg.g2))]
     missing = [f"{k}[{f}]" for k in ("madd_accumulate", "complete_add")
-               for f in forms if counts.get((k, f), 0) <= 0]
+               for f, _ in forms if counts.get((k, f), 0) <= 0]
     if missing:
         raise AssertionError("kernels not launched on the main path: "
                              + ", ".join(missing))
-    return counts
+    # every commitment MSM of both proves ran K1 once: none went to the
+    # host
+    for f, grp in forms:
+        want = K1_PER_PROVE[grp]
+        got = (step2.get(("madd_accumulate", f), 0),
+               counts.get(("madd_accumulate", f), 0))
+        if got != (want, 2 * want):
+            raise AssertionError(
+                f"madd_accumulate[{f}]: {got[0]} launches in the warm step "
+                f"and {got[1]} in both proves, expected {want} and "
+                f"{2 * want}")
+    return counts, probe
+
+
+def phase_path(results, probe):
+    """Each kernel on the inputs of its first launch in the warm step,
+    exactly against its plain version, timed with CUDA events (the plain
+    version by its one call)."""
+    import numpy as np
+    import torch
+
+    for (kernel, form), (ec, args) in sorted(probe.first.items()):
+        D = ec.d
+        dev = args[0].device
+        if kernel == "madd_accumulate":
+            table, perm, loads = args
+            nwin, T, L = perm.shape
+            pm = perm.cpu().numpy().view(np.uint32) & 0x7FFFFFFF
+            flagged = (table[:, 0, 0, -1] < 0).cpu().numpy()
+            act = np.arange(T)[None, :, None] < loads.cpu().numpy()[
+                :, None, :]
+            madds = int((act & ~flagged[pm]).sum())
+            nbytes = (table.numel() + perm.numel() + loads.numel()
+                      + nwin * L * ec.point_words) * 4
+            mads = madds * MULS_MADD * PRODUCTS[D] * 2
+            shape = (f"{nwin}x{L} lanes, T={T}, {madds} mixed adds, "
+                     f"{table.shape[0]}-row table")
+            reps = 5
+        else:
+            n = args[0].numel() // ec.point_words
+            nbytes = 3 * args[0].numel() * 4
+            mads = n * MULS_ADD * PRODUCTS[D] * 2
+            shape = f"{n} pairs"
+            reps = 10
+        kern = getattr(ec, "madd_accumulate" if kernel == "madd_accumulate"
+                       else "add")
+        plain = getattr(ec, kernel + "_plain")
+        got = kern(*args)
+        sync(dev)
+        t0 = time.perf_counter()
+        want = plain(*args)
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - want.long()).abs().max())
+        if err:
+            raise AssertionError(f"{kernel}[{form}] on the warm step's "
+                                 f"inputs: kernel != plain")
+        ms = device_ms(lambda: kern(*args), reps, dev)
+        rec = record(kernel, form, D, err, ms, plain_ms, nbytes, mads)
+        results.append(rec)
+        say(5, f"{kernel}[{form}] on the warm step's first-launch inputs "
+               f"({shape}): exact; {ms:.3f} ms, bound {rec['bound_ms']:.3f}"
+               f" ms ({rec['bound_by']}), plain {plain_ms:.0f} ms")
 
 
 def main(argv):
@@ -386,15 +503,16 @@ def main(argv):
     counts = {}
     card = phase_build()
     if 2 in phases:
-        phase_kernels(results)
+        phase_kernels()
     if 3 in phases:
         phase_msm()
     if 4 in phases:
-        counts = phase_chain()
+        counts, probe = phase_chain()
+        phase_path(results, probe)
     for rec in results:
         kernel, form = rec["name"].rstrip("]").split("[")
         rec["launches"] = counts.get((kernel, form), 0)
-    say(5, f"all phases passed in {time.perf_counter() - t_start:.1f}s")
+    say(6, f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

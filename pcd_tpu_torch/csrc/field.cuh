@@ -6,10 +6,10 @@
 // helpers of Fp32Ctx (pcd_tpu/ops/fp32.py:228-393: 8-bit limbs in f32,
 // bf16 Toeplitz reductions on the MXU) and _ExtOpsT
 // (pcd_tpu/ops/ec32.py:747-826).  A GPU multiplies 32 x 32 -> 64 bits in
-// its integer units, so a prime-field product is one CIOS pass (200
-// partial products).  An extension product sums each output component's
-// cross products at the wide (640-bit) level, the wrapped ones scaled by
-// nr, and reduces once per component, as _ExtOpsT.mul does.  Every
+// its integer units, so a prime-field product is one CIOS pass (210
+// partial products).  An extension product forms its cross products by
+// Karatsuba at the wide (640-bit) level, scales the wrapped ones by nr,
+// and reduces once per component, as _ExtOpsT.mul does.  Every
 // result is fully reduced, so the plain torch versions
 // (pcd_tpu_torch/ops/field.py) agree limb for limb.
 //
@@ -193,37 +193,117 @@ __device__ __forceinline__ void fe_neg(Fe<D>& r, const Fe<D>& a,
   for (int i = 0; i < D; ++i) fp_sub(r.c[i], zero, a.c[i], k.p);
 }
 
-// Fp^D product: c_m = sum_{i+j = m mod D} a_i b_j (wrapped terms * nr),
-// each sum below (1 + 2 nr) p^2 < p R, reduced once.  Out of line: the
-// D = 3 body is ~9 wide products, and inlining it at the 17-18 call sites
-// of one EC add would multiply code size and build time.
+// w (2NL+1 words) = x * y
+__device__ __forceinline__ void wide_mul(uint32_t w[2 * NL + 1],
+                                         const uint32_t x[NL],
+                                         const uint32_t y[NL]) {
+#pragma unroll
+  for (int i = 0; i < 2 * NL + 1; ++i) w[i] = 0;
+  wide_mac(w, x, y);
+}
+
+// w = x * y for x = a_i + a_j, y = b_i + b_j (unreduced sums < 2p < 2^301)
+__device__ __forceinline__ void wide_mul_sums(uint32_t w[2 * NL + 1],
+                                              const uint32_t ai[NL],
+                                              const uint32_t aj[NL],
+                                              const uint32_t bi[NL],
+                                              const uint32_t bj[NL]) {
+  uint32_t x[NL], y[NL];
+  uint32_t cx = 0, cy = 0;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    u64 s = (u64)ai[l] + aj[l] + cx;
+    x[l] = (uint32_t)s;
+    cx = (uint32_t)(s >> 32);
+    s = (u64)bi[l] + bj[l] + cy;
+    y[l] = (uint32_t)s;
+    cy = (uint32_t)(s >> 32);
+  }
+  wide_mul(w, x, y);
+}
+
+// w -= x (2NL+1 words; the caller keeps w >= x)
+__device__ __forceinline__ void wide_sub(uint32_t w[2 * NL + 1],
+                                         const uint32_t x[2 * NL + 1]) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 2 * NL + 1; ++i) {
+    u64 d = (u64)w[i] - x[i] - borrow;
+    w[i] = (uint32_t)d;
+    borrow = (uint32_t)(d >> 63);
+  }
+}
+
+// w += x (2NL+1 words; the sum stays below 2^(32 (2NL+1)))
+__device__ __forceinline__ void wide_add(uint32_t w[2 * NL + 1],
+                                         const uint32_t x[2 * NL + 1]) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 2 * NL + 1; ++i) {
+    u64 t = (u64)w[i] + x[i] + c;
+    w[i] = (uint32_t)t;
+    c = (uint32_t)(t >> 32);
+  }
+}
+
+// w += s * x (2NL+1 words, s < 2^32; x < 2^640 in its first 2NL words)
+__device__ __forceinline__ void wide_add_scaled(uint32_t w[2 * NL + 1],
+                                                const uint32_t x[2 * NL + 1],
+                                                uint32_t s) {
+  u64 c = 0;
+#pragma unroll
+  for (int i = 0; i < 2 * NL; ++i) {
+    u64 t = (u64)x[i] * s + w[i] + c;
+    w[i] = (uint32_t)t;
+    c = t >> 32;
+  }
+  w[2 * NL] += (uint32_t)c;
+}
+
+// Fp^D product with Karatsuba cross products, as _ExtOpsT.mul:
+// v_i = a_i b_i, and a_i b_j + a_j b_i = (a_i + a_j)(b_i + b_j) - v_i - v_j
+// (never negative, so the wide words stay unsigned).  Each component
+// c_m = sum_{i+j = m mod D} a_i b_j (wrapped terms * nr) is below
+// (1 + 2 nr) p^2 < p R and is reduced once: D = 2 takes 3 wide products,
+// D = 3 takes 6.  Out of line: inlining the D = 3 body at the 17-18 call
+// sites of one EC add would multiply code size and build time.
 template <int D>
 __device__ __noinline__ void ext_mul(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
                                      const FieldConsts& k) {
+  uint32_t v[D][2 * NL + 1];
+  uint32_t acc[2 * NL + 1];
+#pragma unroll
+  for (int i = 0; i < D; ++i) wide_mul(v[i], a.c[i], b.c[i]);
   Fe<D> out;
+  if constexpr (D == 2) {
+    // c0 = v0 + nr v1;  c1 = (a0 + a1)(b0 + b1) - v0 - v1
+    wide_mul_sums(acc, a.c[0], a.c[1], b.c[0], b.c[1]);
+    wide_sub(acc, v[0]);
+    wide_sub(acc, v[1]);
+    wide_redc(out.c[1], acc, k);
+    wide_add_scaled(v[0], v[1], k.nr);
+    wide_redc(out.c[0], v[0], k);
+  } else {
+    // c0 = v0 + nr (a1 b2 + a2 b1);  c1 = a0 b1 + a1 b0 + nr v2;
+    // c2 = a0 b2 + a2 b0 + v1
+    uint32_t x[2 * NL + 1];
+    wide_mul_sums(x, a.c[1], a.c[2], b.c[1], b.c[2]);
+    wide_sub(x, v[1]);
+    wide_sub(x, v[2]);
 #pragma unroll
-  for (int m = 0; m < D; ++m) {
-    uint32_t acc[2 * NL + 1];
-#pragma unroll
-    for (int i = 0; i < 2 * NL + 1; ++i) acc[i] = 0;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const int j = (m - i + D) % D;
-      if (i + j >= D) {
-        uint32_t s[NL];  // nr * a_i < 2^304: fits 10 limbs
-        uint32_t c = 0;
-#pragma unroll
-        for (int l = 0; l < NL; ++l) {
-          u64 t = (u64)a.c[i][l] * k.nr + c;
-          s[l] = (uint32_t)t;
-          c = (uint32_t)(t >> 32);
-        }
-        wide_mac(acc, s, b.c[j]);
-      } else {
-        wide_mac(acc, a.c[i], b.c[j]);
-      }
-    }
-    wide_redc(out.c[m], acc, k);
+    for (int i = 0; i < 2 * NL + 1; ++i) acc[i] = v[0][i];
+    wide_add_scaled(acc, x, k.nr);
+    wide_redc(out.c[0], acc, k);
+    wide_mul_sums(acc, a.c[0], a.c[1], b.c[0], b.c[1]);
+    wide_sub(acc, v[0]);
+    wide_sub(acc, v[1]);
+    wide_add_scaled(acc, v[2], k.nr);
+    wide_redc(out.c[1], acc, k);
+    wide_mul_sums(acc, a.c[0], a.c[2], b.c[0], b.c[2]);
+    wide_sub(acc, v[0]);
+    wide_sub(acc, v[2]);
+    wide_add(acc, v[1]);
+    wide_redc(out.c[2], acc, k);
   }
   r = out;
 }

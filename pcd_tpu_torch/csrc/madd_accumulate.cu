@@ -12,7 +12,7 @@
 // one MSM run in one grid: one window's 8192 lanes alone would not fill
 // the card's 132 SMs.
 //
-// Bound: operations.  A mixed add is 17 field products (D = 1: 17 x 200
+// Bound: operations.  A mixed add is 17 field products (D = 1: 17 x 210
 // 32x32-bit partial products) against 80 * D gathered bytes, so the
 // kernel is integer-multiply bound; the accumulator stays in registers
 // (spilling at D = 3) across all rounds and leaves once.
@@ -23,7 +23,6 @@ __global__ void __launch_bounds__(128)
 madd_accumulate_kernel(const uint32_t* __restrict__ table,
                        const uint32_t* __restrict__ perm,
                        const int32_t* __restrict__ loads,
-                       const uint32_t* __restrict__ init,
                        uint32_t* __restrict__ out, long lanes_total, int T,
                        int L, FieldConsts k) {
   const long g = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -31,11 +30,17 @@ madd_accumulate_kernel(const uint32_t* __restrict__ table,
   const long w = g / L;
   const long lane = g - w * L;
   Pt<D> acc;
-  if (init != nullptr) {
-    pt_load<D>(acc, init + g * (3 * D * NL));
-  } else {
-    pt_identity<D>(acc, k);
-  }
+  pt_identity<D>(acc, k);
+  // Hide the identity's constant words from the optimizer: folding them
+  // into the round loop crashes nvcc 12.9's front end at D = 1.
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      asm("" : "+r"(acc.X.c[i][l]));
+      asm("" : "+r"(acc.Y.c[i][l]));
+      asm("" : "+r"(acc.Z.c[i][l]));
+    }
   const int ld = loads[g];
   const uint32_t* pw = perm + w * (long)T * L + lane;
   for (int t = 0; t < ld; ++t) {
@@ -69,11 +74,12 @@ madd_accumulate_kernel(const uint32_t* __restrict__ table,
 }
 
 // table (m, 2, D, NL) u32, perm (nwin, T, L) u32, loads (nwin, L) i32,
-// init/out (nwin * L, 3, D, NL) u32 (init may be null); consts points to
-// a host FieldConsts; stream is a cudaStream_t.  Returns cudaGetLastError.
+// out (nwin * L, 3, D, NL) u32, every lane starting at the identity;
+// consts points to a host FieldConsts; stream is a cudaStream_t.  Returns
+// cudaGetLastError.
 extern "C" int pcd_madd_accumulate(int D, const void* table, const void* perm,
-                                   const void* loads, const void* init,
-                                   void* out, long lanes_total, int T, int L,
+                                   const void* loads, void* out,
+                                   long lanes_total, int T, int L,
                                    const void* consts, void* stream) {
   const FieldConsts k = *reinterpret_cast<const FieldConsts*>(consts);
   if (lanes_total <= 0) return 0;
@@ -83,19 +89,18 @@ extern "C" int pcd_madd_accumulate(int D, const void* table, const void* perm,
   const uint32_t* tb = static_cast<const uint32_t*>(table);
   const uint32_t* pm = static_cast<const uint32_t*>(perm);
   const int32_t* ld = static_cast<const int32_t*>(loads);
-  const uint32_t* in = static_cast<const uint32_t*>(init);
   uint32_t* o = static_cast<uint32_t*>(out);
   switch (D) {
     case 1:
-      madd_accumulate_kernel<1><<<grid, block, 0, s>>>(tb, pm, ld, in, o,
+      madd_accumulate_kernel<1><<<grid, block, 0, s>>>(tb, pm, ld, o,
                                                        lanes_total, T, L, k);
       break;
     case 2:
-      madd_accumulate_kernel<2><<<grid, block, 0, s>>>(tb, pm, ld, in, o,
+      madd_accumulate_kernel<2><<<grid, block, 0, s>>>(tb, pm, ld, o,
                                                        lanes_total, T, L, k);
       break;
     case 3:
-      madd_accumulate_kernel<3><<<grid, block, 0, s>>>(tb, pm, ld, in, o,
+      madd_accumulate_kernel<3><<<grid, block, 0, s>>>(tb, pm, ld, o,
                                                        lanes_total, T, L, k);
       break;
     default:

@@ -222,12 +222,10 @@ class ECCtx:
                           self._split(Q.reshape(flat)))
         return self._join(*R).reshape(shape)
 
-    def madd_accumulate_plain(self, table, perm, loads, init=None):
+    def madd_accumulate_plain(self, table, perm, loads):
         """Plain version of K1 (see madd_accumulate)."""
         nwin, T, L = perm.shape
-        dev = table.device
-        acc = self.identity((nwin * L,), dev) if init is None else init
-        acc = self._split(acc.reshape(nwin * L, 3, self.d, NLIMB))
+        acc = self._split(self.identity((nwin * L,), table.device))
         f = self.f
         lds = loads.reshape(-1)
         for t in range(T):
@@ -254,17 +252,17 @@ class ECCtx:
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: 16-byte aligned storage expected")
 
-    def madd_accumulate(self, table, perm, loads, init=None):
+    def madd_accumulate(self, table, perm, loads):
         """K1.  table (m, 2, d, 10) affine rows; perm (nwin, T, L) int32
         (row index in bits 0-30, digit sign in bit 31); loads (nwin, L)
-        int32 active rounds per lane; init (nwin, L, 3, d, 10) or None
-        (identity).  Returns the (nwin, L, 3, d, 10) lane accumulators
-        after every lane folded perm[w, t, lane] for t < loads[w, lane],
-        skipping flagged rows."""
+        int32 active rounds per lane.  Returns the (nwin, L, 3, d, 10)
+        lane accumulators, each started at the identity, after every lane
+        folded perm[w, t, lane] for t < loads[w, lane], skipping flagged
+        rows."""
         dev = table.device
         if dev.type == "cpu":
             _PLAIN[("madd_accumulate", self.name)] += 1
-            return self.madd_accumulate_plain(table, perm, loads, init)
+            return self.madd_accumulate_plain(table, perm, loads)
         if dev.type != "cuda":
             raise ValueError(f"madd_accumulate: unsupported device {dev}")
         nwin, T, L = perm.shape
@@ -275,10 +273,6 @@ class ECCtx:
                 raise ValueError(f"{nm}: contiguous int32 on {dev} expected")
         if tuple(loads.shape) != (nwin, L):
             raise ValueError("loads: (nwin, L) expected")
-        if init is not None:
-            self._check(init, (3, self.d, NLIMB), "init")
-            if init.numel() != nwin * L * self.point_words:
-                raise ValueError("init: (nwin, L, 3, d, 10) expected")
         from .kernels import lib
 
         out = torch.empty((nwin, L, 3, self.d, NLIMB), dtype=torch.int32,
@@ -286,9 +280,8 @@ class ECCtx:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib("madd_accumulate").pcd_madd_accumulate(
             self.d, table.data_ptr(), perm.data_ptr(), loads.data_ptr(),
-            None if init is None else init.data_ptr(), out.data_ptr(),
-            nwin * L, T, L, self.kconsts.ctypes.data_as(ctypes.c_void_p),
-            stream)
+            out.data_ptr(), nwin * L, T, L,
+            self.kconsts.ctypes.data_as(ctypes.c_void_p), stream)
         if rc != 0:
             raise RuntimeError(f"madd_accumulate launch failed: CUDA error "
                                f"{rc}")

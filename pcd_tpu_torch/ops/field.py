@@ -196,16 +196,14 @@ class FieldCtx:
 
 def carry(t):
     """Propagate carries (signed: arithmetic shifts floor) down the digit
-    axis in parallel rounds until none is left: rows 0..n-2 end in
-    [0, 2^16), the last row keeps the rest (its sign is the sign of the
-    whole value)."""
+    axis, one row after the other: rows 0..n-2 end in [0, 2^16), the last
+    row keeps the rest (its sign is the sign of the whole value).  Row by
+    row needs no data-dependent stop, so it never waits on the device."""
     t = t.clone()
-    while True:
-        c = t[:-1] >> 16
-        if not bool(c.any()):
-            return t
-        t[:-1] &= _M16
-        t[1:] += c
+    for i in range(t.shape[0] - 1):
+        t[i + 1] += t[i] >> 16
+        t[i] &= _M16
+    return t
 
 
 def wide(a, b):

@@ -102,8 +102,8 @@ def lib(name: str) -> ctypes.CDLL:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         if name == "madd_accumulate":
             L.pcd_madd_accumulate.restype = ci
-            L.pcd_madd_accumulate.argtypes = [ci, vp, vp, vp, vp, vp, cl,
-                                              ci, ci, vp, vp]
+            L.pcd_madd_accumulate.argtypes = [ci, vp, vp, vp, vp, cl, ci,
+                                              ci, vp, vp]
         else:
             L.pcd_complete_add.restype = ci
             L.pcd_complete_add.argtypes = [ci, vp, vp, vp, cl, vp, vp]

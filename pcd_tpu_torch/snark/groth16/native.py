@@ -71,16 +71,14 @@ class Groth16PK:
 
 
 class Groth16:
-    def __init__(self, curve_cfg, backend: str = "auto", device=None):
+    def __init__(self, curve_cfg, device=None):
         """curve_cfg: MNTCurveConfig — G1/G2/Fr and the pairing.
-        backend: 'host' pins every MSM to the C++ tier; 'auto' streams
-        the commitment MSMs of circuits from STREAM_MIN variables up.
-        device: where the stream MSM runs (None means the card)."""
+        device: where the stream MSM runs the commitment MSMs of circuits
+        from STREAM_MIN variables up (None means the card)."""
         from ...device import resolve_device
 
         self.cfg = curve_cfg
         self.Fr = curve_cfg.Fr
-        self.backend = backend
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             from ... import native
@@ -140,8 +138,11 @@ class Groth16:
     # pipeline; the h MSM follows once the quotient lands, and the small
     # window sums are fetched and Horner-combined after.  On a card all of
     # it runs on one side stream; every future carries the CUDA event
-    # recorded after its work, and the collect waits on that event.
+    # recorded after its work, and the collect waits on that event.  Once
+    # a circuit is streamed, all five MSMs are: a missing one raises
+    # rather than running on the host.
     STREAM_MIN = 24_000
+    STREAMED = ("a_query", "b_g1_query", "b_g2_query", "l_query", "h_query")
 
     def _stream_ctx(self):
         """Context manager placing work on the MSM side stream (a no-op on
@@ -156,13 +157,10 @@ class Groth16:
 
     def _stream_launch(self, pk, z_limbs, n_inst):
         """Enqueue the a/b1/b2/l MSMs on the stream tier; returns {name:
-        future} or None."""
-        from ..msm_dispatch import (stream_enabled, stream_msm_async,
-                                    stream_table)
+        future}, or None for a circuit below STREAM_MIN."""
+        from ..msm_dispatch import stream_msm_async, stream_table
 
         if z_limbs is None or len(pk.a_query) < self.STREAM_MIN:
-            return None
-        if not stream_enabled(self.backend):
             return None
         # l_query is the z vector offset by the instance columns; padding
         # its table with n_inst flagged-infinity rows realigns it to the
@@ -186,27 +184,23 @@ class Groth16:
                 stream_table(pk, nm, curve, self.Fr.BITS, self.device)
             with span("stream_dispatch"):
                 for nm, curve in names:
-                    fut = stream_msm_async(pk, nm, curve, self.Fr.BITS,
-                                           z_limbs, self.device,
-                                           sched_cache=sched_cache)
-                    if fut is not None:
-                        futs[nm] = fut
+                    futs[nm] = stream_msm_async(pk, nm, curve, self.Fr.BITS,
+                                                z_limbs, self.device,
+                                                sched_cache=sched_cache)
         if "l_query_zpad" in futs:
             futs["l_query"] = futs.pop("l_query_zpad")
-        return futs or None
+        return futs
 
     def _stream_launch_h(self, pk, futs, h_limbs):
         """Enqueue the h-query MSM once the quotient limbs land."""
-        from ..msm_dispatch import stream_enabled, stream_msm_async
+        from ..msm_dispatch import stream_msm_async
 
-        if futs is None or not stream_enabled(self.backend):
+        if futs is None:
             return False
         with self._stream_ctx(), span("stream_dispatch_h"):
-            fut = stream_msm_async(pk, "h_query", self.cfg.g1,
-                                   self.Fr.BITS, h_limbs, self.device)
-        if fut is None:
-            return False
-        futs["h_query"] = fut
+            futs["h_query"] = stream_msm_async(pk, "h_query", self.cfg.g1,
+                                               self.Fr.BITS, h_limbs,
+                                               self.device)
         return True
 
     @staticmethod
@@ -444,6 +438,13 @@ class Groth16:
         # device hasn't finished.
         h_streamed = (isinstance(h, np.ndarray)
                       and self._stream_launch_h(pk, hybrid, h))
+        if len(pk.a_query) >= self.STREAM_MIN and (
+                self.device.type == "cuda" or hybrid is not None):
+            missing = [nm for nm in self.STREAMED
+                       if hybrid is None or nm not in hybrid]
+            if missing:
+                raise RuntimeError("commitment MSMs missing from the "
+                                   "stream tier: " + ", ".join(missing))
 
         mb2 = msm_q("b_g2_query", zq, "msm_b2")
         from ...native import EncodedPoints

@@ -35,10 +35,7 @@ def host_query(owner, name: str):
     cache = getattr(owner, "_host_enc", None)
     if cache is None:
         cache = {}
-        try:
-            object.__setattr__(owner, "_host_enc", cache)
-        except Exception:
-            return q
+        owner._host_enc = cache
     enc = cache.get(name)
     if enc is None:
         from ..msm.host import encode_query
@@ -48,35 +45,28 @@ def host_query(owner, name: str):
     return enc
 
 
-def stream_enabled(backend: str) -> bool:
-    """The stream tier takes the commitment MSMs unless the prover is
-    pinned to the host tier (backend='host')."""
-    return backend != "host"
-
-
 def stream_table(pk, nm: str, curve, scalar_bits: int, device):
     """(stream ctx, device table, inf mask) for a pk query table, cached
-    on the pk per device; None when the table isn't native-encoded or the
-    coordinate field is unsupported."""
+    on the pk per device.  Raises when the table cannot go to the stream
+    tier: nothing drops to the host quietly."""
     from ..native import EncodedPoints
     from ..ops.msm_stream import stream_ctx, stream_ok
 
     if not stream_ok(curve):
-        return None
+        raise ValueError(f"stream MSM: unsupported coordinate field of "
+                         f"{curve.name}")
     sctx = stream_ctx(curve, scalar_bits, WINDOW_BITS, LANES)
     tables = getattr(pk, "_stream_tables", None)
     if tables is None:
         tables = {}
-        try:
-            pk._stream_tables = tables
-        except Exception:
-            return None
+        pk._stream_tables = tables
     key = (nm, str(device))
     hit = tables.get(key)
     if hit is None:
         enc = host_query(pk, nm)
         if not isinstance(enc, EncodedPoints):
-            return None
+            raise RuntimeError(f"stream MSM: {nm} has no native encoding "
+                               f"(the C++ tier is required)")
         inf = np.asarray(enc.inf, dtype=bool)
         hit = (sctx.table_from_limbs(enc.xs, enc.ys, inf, device), inf)
         tables[key] = hit
@@ -86,8 +76,8 @@ def stream_table(pk, nm: str, curve, scalar_bits: int, device):
 def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                      device, sched_cache=None):
     """Enqueue one query MSM on the stream tier without waiting; returns
-    a future for stream_collect, or None.  scal_limbs: (n, NL) u64
-    canonical limbs (truncated to the table length).
+    a future for stream_collect.  scal_limbs: (n, NL) u64 canonical limbs
+    (truncated to the table length; fewer scalars than points raises).
 
     sched_cache: optional per-prove dict.  The tables flag their
     infinities in-row, so a schedule depends only on the scalars, and the
@@ -95,14 +85,12 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
     one schedule and one upload.  The key identifies the scalar vector by
     a digest of its limbs (the reference keys on (c, L, qn) alone, which is
     right only while every caller passes the same z)."""
-    tab = stream_table(pk, nm, curve, scalar_bits, device)
-    if tab is None:
-        return None
-    sctx, table, _ = tab
+    sctx, table, _ = stream_table(pk, nm, curve, scalar_bits, device)
     qn = len(getattr(pk, nm))
     sl = np.ascontiguousarray(scal_limbs[:qn])
     if sl.shape[0] != qn:
-        return None
+        raise ValueError(f"stream MSM {nm}: {sl.shape[0]} scalars for "
+                         f"{qn} points")
     sched = None
     key = None
     if sched_cache is not None:

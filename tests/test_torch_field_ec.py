@@ -5,7 +5,9 @@ u64-limb inputs as EC32Ctx / EC32ExtCtx (their non-Pallas branches) and
 must give the same affine points, exactly, for the toy and the real
 MNT4/MNT6 fields in G1 and G2 form.  Cases include infinity-flagged table
 rows, zero loads, negative digits, P = Q, P = -Q and identities.  Data
-crosses between the packages as numpy arrays.  (The CUDA kernels
+crosses between the packages as numpy arrays; the port's limbs are decoded
+here into pcd_tpu's host points, so every expected value comes from the
+JAX package.  (The CUDA kernels
 themselves are held to these plain versions on the card by
 test_torch_kernels_cuda.py and chip_smoke.py.)
 """
@@ -33,9 +35,9 @@ FORMS = [("toy_cycle", "main", "g1"), ("toy_cycle", "main", "g2"),
 L, T, M = 128, 4, 40
 # pcd_tpu's EC32ExtCtx computes off-curve points over the toy MNT6 Fq3
 # (its complete add and mixed add alike; its f32 lazy-reduction bounds
-# assume 298-bit moduli).  The toy chains run their G2 MSMs on the host,
-# so pcd_tpu's own tests never reach it.  There the port is held to the
-# host curve arithmetic alone.
+# assume 298-bit moduli), which pcd_tpu's own host curve sums witness.
+# The toy chains run their G2 MSMs on the host, so pcd_tpu's own tests
+# never reach it.  There the port is held to pcd_tpu's host curve alone.
 REF_FAULTS = {("toy_cycle", "help", "g2")}
 
 
@@ -119,6 +121,29 @@ def _port_accumulate(tcurve, xs, ys, inf, idx, sign, loads):
     return ec, acc[0]
 
 
+def _ref_point(rcurve, limbs):
+    """The port's (3, d, 10) Montgomery u32 limbs (R = 2^320) -> pcd_tpu
+    host point, decoded without the port's code."""
+    F = rcurve.F
+    d = F.extension_degree_over_prime()
+    prime = F.prime_subfield()
+    p = prime.MODULUS
+    rinv = pow(1 << 320, -1, p)
+    raw = np.ascontiguousarray(np.asarray(limbs, dtype=np.int32)).view(
+        "<u4").reshape(3, d, 10)
+
+    def coord(k):
+        cs = [prime(int.from_bytes(raw[k, i].tobytes(), "little") * rinv % p)
+              for i in range(d)]
+        return cs[0] if d == 1 else F.from_prime_coeffs(cs)
+
+    x, y, z = (coord(k) for k in range(3))
+    if z.is_zero():
+        return rcurve.infinity()
+    zi = z.inv()
+    return rcurve.point(x * zi, y * zi)
+
+
 def _affine(P):
     """A point as comparable canonical ints (None for infinity)."""
     if P.is_infinity():
@@ -141,7 +166,7 @@ def test_kernels_match_ec32(form):
     rcurve, _, tcurve, bits = _curves(form)
     pts, xs, ys, inf, idx, sign, loads = _inputs(form, 11)
     tec, tacc = _port_accumulate(tcurve, xs, ys, inf, idx, sign, loads)
-    k1 = [_affine(tec.decode_point(a.numpy())) for a in tacc]
+    k1 = [_affine(_ref_point(rcurve, a.numpy())) for a in tacc]
     for lane in range(L):
         exp = rcurve.infinity()
         for t in range(loads[lane]):
@@ -159,10 +184,10 @@ def test_kernels_match_ec32(form):
     Qt[2 * k:3 * k] = tec.identity((k,), "cpu")             # Q = O
     Pt = tacc.clone()
     Pt[3 * k:4 * k] = tec.identity((k,), "cpu")             # P = O
-    k2 = [_affine(tec.decode_point(r.numpy())) for r in tec.add(Pt, Qt)]
+    k2 = [_affine(_ref_point(rcurve, r.numpy())) for r in tec.add(Pt, Qt)]
     for i in range(L):
-        exp = tec.decode_point(Pt[i].numpy()) + tec.decode_point(
-            Qt[i].numpy())
+        exp = _ref_point(rcurve, Pt[i].numpy()) + _ref_point(
+            rcurve, Qt[i].numpy())
         assert k2[i] == _affine(exp), f"K2 pair {i}"
         if k <= i < 2 * k:
             assert k2[i] is None

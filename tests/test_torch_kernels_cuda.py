@@ -62,9 +62,6 @@ def test_kernels_match_plain(form, cuda_device):
     acc = ec.madd_accumulate(table, perm, loads)
     assert launch_counts()[("madd_accumulate", curve.name)] == before + 1
     assert torch.equal(acc, ec.madd_accumulate_plain(table, perm, loads))
-    init = acc.clone()
-    assert torch.equal(ec.madd_accumulate(table, perm, loads, init),
-                       ec.madd_accumulate_plain(table, perm, loads, init))
     P = acc.reshape(-1, 3, ec.d, 10)
     Q = P.flip(0).contiguous()
     Q[:7] = P[:7]

@@ -69,11 +69,11 @@ def test_toy_chain_matches_reference(monkeypatch):
     assert TS.pcd_vk_to_bytes(tpcd, tvk) == vk_blob.tobytes()
 
     # every commitment MSM of both SNARKs' proves on the stream tier; the
-    # toy's 23k-point MSMs take windows of 8 bits on 1024 lanes (the card's
+    # toy's 23k-point MSMs take windows of 8 bits on 2048 lanes (the card's
     # 12 and 8192 cost the plain versions several times more here)
     monkeypatch.setattr(Groth16, "STREAM_MIN", 0)
     monkeypatch.setattr(msm_dispatch, "WINDOW_BITS", 8)
-    monkeypatch.setattr(msm_dispatch, "LANES", 1024)
+    monkeypatch.setattr(msm_dispatch, "LANES", 2048)
     tec.reset_launch_counts()
     rng = TRng(b"torch port prove")
     one_t = TF.from_int(1)
@@ -90,9 +90,12 @@ def test_toy_chain_matches_reference(monkeypatch):
     assert not tpcd.verify(tvk, tpred, one_t, p2)
     cyc = tpcd.ic.cycle
     for curve in (cyc.main.g1, cyc.main.g2, cyc.help.g1, cyc.help.g2):
-        for kernel in ("madd_accumulate", "complete_add"):
-            assert plain.get((kernel, curve.name), 0) > 0, (kernel,
-                                                            curve.name)
+        assert plain.get(("complete_add", curve.name), 0) > 0, curve.name
+    # K1 once per commitment MSM: a, b1, l and h in G1, b2 in G2, two
+    # proves of each SNARK
+    for cfg in (cyc.main, cyc.help):
+        assert plain[("madd_accumulate", cfg.g1.name)] == 8
+        assert plain[("madd_accumulate", cfg.g2.name)] == 2
     assert tec.launch_counts() == {}
 
 
