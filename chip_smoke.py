@@ -3,7 +3,7 @@
 plain versions.  Run from the root of a checkout with one CUDA card:
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --phases 1,2   # a subset (1 must be among them)
+    python3 chip_smoke.py --phases 1,6   # a subset (1 must be among them)
 
 Phases, one output line each, then a `kernels` JSON line and the final
 status line:
@@ -14,8 +14,10 @@ status line:
      four field forms of the main path (MNT4/MNT6 G1 over Fq, MNT4 G2 over
      Fq2, MNT6 G2 over Fq3): K1 on 25 windows x 8192 lanes, T = 8, with
      zero loads and infinity-flagged rows, K2 on 204800 pairs with P = Q,
-     P = -Q and identities; exact equality of the limbs; CUDA-event times
-     at these shapes;
+     P = -Q and identities; for G1, K3 on K1's 204800 outputs with mixed
+     signs, a quarter of the rows inactive, acc = identity and acc = Q
+     rows, and once more from the identity against K1 at T = 1; exact
+     equality of the limbs; CUDA-event times at these shapes;
   3  one 2^18-point MNT4 G1 stream MSM against the C++ Pippenger;
   4  the real-cycle mnt4_groth16 IVC chain on the card: setup, the base
      case, a warm step-2 prove, both verified, and the negative check
@@ -26,7 +28,11 @@ status line:
   5  each kernel again on the inputs of its first launch in the warm step
      (K1: the a-query or b_g2 MSM; K2: the first suffix-scan step),
      exactly against its plain version, with CUDA-event times: these are
-     the numbers of the `kernels` line.
+     the numbers of the `kernels` line.  Runs after every chain phase,
+     on that chain's inputs;
+  6  phases 4 and 5 for the real-cycle GM17 chain mnt4_gm17 and the
+     mixed chains mnt4_mix_groth16_gm17 and mnt4_mix_gm17_groth16, each
+     at full width; K1 exactly once per commitment MSM of either SNARK.
 Any failure exits non-zero without the final line.  Nothing here imports
 JAX or the JAX package.
 """
@@ -53,19 +59,29 @@ INT32_MAD_PER_S = 64 * 132 * 1.98e9
 # scalings of 10 limbs, and D word-by-word reductions of 110.
 PRODUCTS = {1: 210, 2: 300 + 10 + 220, 3: 600 + 30 + 330}
 MULS_MADD, MULS_ADD = 17, 18
-# K1 launches per prove of one SNARK: a, b_g1, l and h in G1, b_g2 in G2
-K1_PER_PROVE = {"g1": 4, "g2": 1}
+# K1 launches per prove of one SNARK: Groth16's a, b_g1, l and h in G1
+# and b_g2 in G2; GM17's a, c and h in G1 and b in G2
+K1_PER_PROVE = {"Groth16": {"g1": 4, "g2": 1}, "GM17": {"g1": 3, "g2": 1}}
+# the chains of phases 4 and 6 (pcd_tpu_torch.configs factories)
+CHAINS = {4: ("mnt4_groth16",),
+          6: ("mnt4_gm17", "mnt4_mix_groth16_gm17", "mnt4_mix_gm17_groth16")}
 
+# each port kernel and the Pallas call sites (pl.pallas_call lines) it
+# replaces; K2<1> also takes the row-layout EC32Ctx._add_pallas, which no
+# path of the JAX package calls
 REPLACES = {
     ("madd_accumulate", 1): "pcd_tpu/ops/ec32.py:721",
     ("madd_accumulate", 2): "pcd_tpu/ops/ec32.py:1319",
     ("madd_accumulate", 3): "pcd_tpu/ops/ec32.py:1319",
-    ("complete_add", 1): "pcd_tpu/ops/ec32.py:502",
-    ("complete_add", 2): "pcd_tpu/ops/ec32.py:1211",
-    ("complete_add", 3): "pcd_tpu/ops/ec32.py:1211",
+    ("complete_add", 1): "pcd_tpu/ops/ec32.py:502, pcd_tpu/ops/ec32.py:401, "
+                         "pcd_tpu/ops/ec32.py:436",
+    ("complete_add", 2): "pcd_tpu/ops/ec32.py:1211, pcd_tpu/ops/ec32.py:1003",
+    ("complete_add", 3): "pcd_tpu/ops/ec32.py:1211, pcd_tpu/ops/ec32.py:1003",
+    ("madd", 1): "pcd_tpu/ops/ec32.py:620",
 }
 SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
-           "complete_add": "pcd_tpu_torch/csrc/complete_add.cu"}
+           "complete_add": "pcd_tpu_torch/csrc/complete_add.cu",
+           "madd": "pcd_tpu_torch/csrc/madd.cu"}
 
 
 def say(phase, msg):
@@ -171,7 +187,8 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
     edge cases: K1 on the 25 windows x 8192 lanes of a 298-bit-scalar MSM
     (T = 8, the help circuit's rounds) with zero loads and flagged rows,
     K2 on the 25 x 8192 lanes of the finish's first scan with P = Q,
-    P = -Q and identities."""
+    P = -Q and identities; K3 for the G1 forms (check_madd).  Returns
+    K3's `kernels` records."""
     import numpy as np
     import torch
 
@@ -180,6 +197,7 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
 
     dev = torch.device(dev)
     rng = np.random.default_rng(2026)
+    records = []
     for form, cfg, which in form_cases():
         curve, gen = getattr(cfg, which), getattr(cfg, which + "_gen")
         ec = ec_ctx(curve)
@@ -221,6 +239,68 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
             raise AssertionError(f"K2 {form}: P + (-P) is not the identity")
         ms = device_ms(lambda: ec.add(P, Q), 10, dev)
         say(2, f"K2 complete_add {form}: exact on {n} pairs; {ms:.3f} ms")
+        if which == "g1":
+            records.append(check_madd(ec, table, got.reshape(-1, 3, D, 10),
+                                      rng, form))
+    return records
+
+
+def check_madd(ec, table, acc0, rng, form):
+    """K3 on K1's n lane outputs against its plain version: q gathered
+    from the table (its flagged rows included), mixed signs, a quarter of
+    the rows inactive; a sixteenth of the accumulators set to the
+    identity and a sixteenth to Q itself (half of those with Q's sign
+    cleared, a doubling, half set, P + (-P)).  Then K3 from the identity
+    against K1 at T = 1 on the same rows and flags (loads = active).
+    Returns K3's `kernels` record."""
+    import numpy as np
+    import torch
+
+    dev = acc0.device
+    n, m = acc0.shape[0], table.shape[0]
+    idx = rng.integers(0, m, n).astype(np.uint32)
+    sign_np = rng.integers(0, 2, n).astype(np.int32)
+    act_np = (rng.random(n) >= 0.25).astype(np.int32)
+    k = n // 16
+    sign_np[k:k + k // 2] = 0                          # acc = Q: doubling
+    sign_np[k + k // 2:2 * k] = 1                      # acc = Q: P - P
+    q = table[torch.from_numpy(idx.astype(np.int64)).to(dev)].contiguous()
+    sign = torch.from_numpy(sign_np).to(dev)
+    active = torch.from_numpy(act_np).to(dev)
+    acc = acc0.clone()
+    acc[:2 * k] = ec.identity((2 * k,), dev)           # acc = O
+    acc[k:2 * k, :2] = q[k:2 * k]                      # acc = (x2 : y2 : 1)
+    acc[k:2 * k, 0, 0, 9] &= 0x7FFFFFFF                # (flag bit cleared)
+    acc[k:2 * k, 2] = acc[:k, 1]
+    sync(dev)
+    t0 = time.perf_counter()
+    want = ec.madd_plain(acc, q, sign, active)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = ec.madd(acc.clone(), q, sign, active)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"K3 {form}: kernel != plain")
+    flagged = (q[:, 0, 0, 9] < 0).cpu().numpy()
+    live = (act_np != 0) & ~flagged
+    neg = np.flatnonzero(live[k + k // 2:2 * k]) + k + k // 2
+    if bool(got[torch.from_numpy(neg).to(dev), 2].any()):
+        raise AssertionError(f"K3 {form}: Q + (-Q) is not the identity")
+    from_o = ec.madd(ec.identity((n,), dev), q, sign, active)
+    perm = (idx | (sign_np.astype(np.uint32) << 31)).view(np.int32)
+    k1 = ec.madd_accumulate(table, torch.from_numpy(perm.reshape(1, 1, n))
+                            .to(dev), active.reshape(1, n))
+    if not torch.equal(k1.reshape(from_o.shape), from_o):
+        raise AssertionError(f"K3 {form}: != K1 at T = 1")
+    ms = device_ms(lambda: ec.madd(acc, q, sign, active), 10, dev)
+    nbytes = n * (2 * 3 + 2) * 10 * 4 + 2 * n * 4
+    rec = record("madd", form, 1, err, ms, plain_ms, nbytes,
+                 int(live.sum()) * MULS_MADD * PRODUCTS[1] * 2)
+    say(2, f"K3 madd {form}: exact against plain and K1 at T = 1 on {n} "
+           f"rows ({int(live.sum())} mixed adds); {ms:.3f} ms, bound "
+           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
+           f"{plain_ms:.0f} ms")
+    return rec
 
 
 def record(kernel, form, D, err, ms, plain_ms, nbytes, mads):
@@ -337,10 +417,10 @@ class LaunchProbe:
         return out
 
 
-def phase_chain(factory=None, dev=None):
-    """The real-cycle mnt4_groth16 chain on the card.  Returns the launch
-    counts of the main path (base case + warm step) and the probe of the
-    warm step."""
+def phase_chain(name="mnt4_groth16", phase=4, dev=None):
+    """The IVC chain of configs.<name> (the real cycle, on the card unless
+    `dev` says otherwise).  Returns the launch counts of the main path
+    (base case + warm step) and the probe of the warm step."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
     from pcd_tpu_torch.pcd.api import FpPredicate
@@ -354,14 +434,16 @@ def phase_chain(factory=None, dev=None):
             (priors[0] + wit).enforce_equal(msg)
 
     secs = {}
+    profiling.reset()
+    profiling.enable()
     t0 = time.perf_counter()
-    pcd = (factory or configs.mnt4_groth16)(dev)   # None: the card
+    pcd = getattr(configs, name)(dev)              # None: the card
     dev = pcd.ic.main_snark.device
     # on the CPU (a rehearsal) the wrappers count plain-version calls
     counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
     F = pcd.ic.main_field
     pred = Counter(F)
-    rng = ChaChaRng(b"chip smoke mnt4_groth16")
+    rng = ChaChaRng(b"chip smoke " + name.encode())
     pk, vk = pcd.circuit_specific_setup(pred, rng)
     secs["setup"] = time.perf_counter() - t0
     one, two = F.from_int(1), F.from_int(2)
@@ -371,8 +453,9 @@ def phase_chain(factory=None, dev=None):
     sync(dev)
     secs["prove_base"] = time.perf_counter() - t0
     base_counts = counter()
+    early = {k: round(v[0], 1) for k, v in profiling.totals().items()
+             if v[0] >= 1.0}
     profiling.reset()
-    profiling.enable()
     with LaunchProbe() as probe:
         probe.on = True
         t0 = time.perf_counter()
@@ -397,32 +480,37 @@ def phase_chain(factory=None, dev=None):
     if neg:
         raise AssertionError("negative check accepted an old message")
     sizes = (len(pk.main_pk.a_query), len(pk.help_pk.a_query))
-    say(4, f"{pcd.ic.cycle.name} Groth16 chain on {dev}: "
-           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
-           + f"; base and step 2 verify, negative check rejects; "
-             f"z sizes main {sizes[0]} help {sizes[1]}")
-    say(4, "warm step spans (s): " + json.dumps(spans))
-    say(4, "launches (base + step 2): " + json.dumps(
+    ic = pcd.ic
+    kinds = (type(ic.main_snark).__name__, type(ic.help_snark).__name__)
+    say(phase, f"{name} ({ic.cycle.name}, {kinds[0]} main / {kinds[1]} "
+               f"help) chain on {dev}: "
+               + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+               + f"; base and step 2 verify, negative check rejects; "
+                 f"z sizes main {sizes[0]} help {sizes[1]}")
+    say(phase, "setup and base-case spans (s): " + json.dumps(early))
+    say(phase, "warm step spans (s): " + json.dumps(spans))
+    say(phase, "launches (base + step 2): " + json.dumps(
         {f"{k}[{f}]": v for (k, f), v in sorted(counts.items())}))
-    say(4, "launches per warm step: " + json.dumps(
+    say(phase, "launches per warm step: " + json.dumps(
         {f"{k}[{f}]": v for (k, f), v in sorted(step2.items())}))
     dms = probe.device_ms()
-    say(4, "kernel device ms per warm step (CUDA events): " + json.dumps(
+    say(phase, "kernel device ms per warm step (CUDA events): " + json.dumps(
         {f"{k}[{f}]": round(v, 3) for (k, f), v in sorted(dms.items())})
         + f"; all kernels {sum(dms.values()):.1f} ms of the "
           f"{secs['prove_step2_warm'] * 1e3:.0f} ms step")
-    cyc = pcd.ic.cycle
-    forms = [(c.name, grp) for cfg in (cyc.main, cyc.help)
+    cyc = ic.cycle
+    forms = [(c.name, grp, kind) for cfg, kind in zip((cyc.main, cyc.help),
+                                                      kinds)
              for grp, c in (("g1", cfg.g1), ("g2", cfg.g2))]
     missing = [f"{k}[{f}]" for k in ("madd_accumulate", "complete_add")
-               for f, _ in forms if counts.get((k, f), 0) <= 0]
+               for f, _, _ in forms if counts.get((k, f), 0) <= 0]
     if missing:
         raise AssertionError("kernels not launched on the main path: "
                              + ", ".join(missing))
     # every commitment MSM of both proves ran K1 once: none went to the
     # host
-    for f, grp in forms:
-        want = K1_PER_PROVE[grp]
+    for f, grp, kind in forms:
+        want = K1_PER_PROVE[kind][grp]
         got = (step2.get(("madd_accumulate", f), 0),
                counts.get(("madd_accumulate", f), 0))
         if got != (want, 2 * want):
@@ -433,13 +521,16 @@ def phase_chain(factory=None, dev=None):
     return counts, probe
 
 
-def phase_path(results, probe):
-    """Each kernel on the inputs of its first launch in the warm step,
-    exactly against its plain version, timed with CUDA events (the plain
-    version by its one call)."""
+def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
+    """Each kernel on the inputs of its first launch in the warm step of
+    chain `name`, exactly against its plain version, timed with CUDA
+    events (the plain version by its one call).  The records carry the
+    chain's launch counts; past the Groth16 chain their names end in
+    "@<name>"."""
     import numpy as np
     import torch
 
+    tag = "" if name == "mnt4_groth16" else "@" + name
     for (kernel, form), (ec, args) in sorted(probe.first.items()):
         D = ec.d
         dev = args[0].device
@@ -478,14 +569,17 @@ def phase_path(results, probe):
                                  f"inputs: kernel != plain")
         ms = device_ms(lambda: kern(*args), reps, dev)
         rec = record(kernel, form, D, err, ms, plain_ms, nbytes, mads)
+        rec["name"] += tag
+        rec["launches"] = counts.get((kernel, form), 0)
         results.append(rec)
-        say(5, f"{kernel}[{form}] on the warm step's first-launch inputs "
-               f"({shape}): exact; {ms:.3f} ms, bound {rec['bound_ms']:.3f}"
-               f" ms ({rec['bound_by']}), plain {plain_ms:.0f} ms")
+        say(phase, f"{kernel}[{form}]{tag} on the warm step's first-launch "
+                   f"inputs ({shape}): exact; {ms:.3f} ms, bound "
+                   f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
+                   f"{plain_ms:.0f} ms")
 
 
 def main(argv):
-    phases = {1, 2, 3, 4}
+    phases = {1, 2, 3, 4, 6}
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
     if not os.path.isdir(os.path.join(HERE, "pcd_tpu_torch")):
@@ -500,19 +594,19 @@ def main(argv):
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
     results = []
-    counts = {}
     card = phase_build()
     if 2 in phases:
-        phase_kernels()
+        results += phase_kernels()       # K3: on no path, 0 launches
     if 3 in phases:
         phase_msm()
-    if 4 in phases:
-        counts, probe = phase_chain()
-        phase_path(results, probe)
-    for rec in results:
-        kernel, form = rec["name"].rstrip("]").split("[")
-        rec["launches"] = counts.get((kernel, form), 0)
-    say(6, f"all phases passed in {time.perf_counter() - t_start:.1f}s")
+    for ph in sorted(set(CHAINS) & phases):
+        for name in CHAINS[ph]:
+            t0 = time.perf_counter()
+            counts, probe = phase_chain(name, ph)
+            phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
+            say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
+                    f"first-launch kernel checks")
+    say("all", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """Carry the JAX package's state into the port.  The "weights" of this
-system are its keys: a PCD proving key serialized by
-`pcd_tpu.utils.serialize.pcd_pk_to_bytes`, and a PCD verifying key in the
-same layout (u32 CRH-seed length, the seed, then the help SNARK's
-`groth16_vk_to_bytes`).  Both packages write the same bytes, so the
+system are its keys: a PCD proving key and a PCD verifying key (u32
+CRH-seed length, the seed, then the help SNARK's vk bytes) in the layouts
+of `pcd_tpu_torch/utils/serialize.py`.  For the Groth16 configs the pk
+blob is `pcd_tpu.utils.serialize.pcd_pk_to_bytes`'s; for the GM17 and
+mixed configs, which the JAX package does not checkpoint, the caller
+writes the same frame from the reference key with the JAX package's point
+and query writers (serialize.gm17_pk_to_bytes gives the layout).  The
 conversion is a parse through the port's copy of serialize; the blobs
 arrive as uint8 numpy arrays and nothing of the JAX package is imported.
 """

@@ -8,7 +8,7 @@ d = 1 for G1, 2 (MNT4 Fq2) or 3 (MNT6 Fq3) for G2.  An MSM table row is
 infinity, which the mixed-add kernel skips (the reference's pad-limb flag,
 ec32.py:200-208).  The identity is (0 : 1 : 0).
 
-Two kernels, each behind a wrapper that launches the CUDA kernel for a
+Three kernels, each behind a wrapper that launches the CUDA kernel for a
 CUDA tensor, runs the plain torch version beside it for a CPU tensor, and
 raises for anything else:
 
@@ -16,8 +16,10 @@ raises for anything else:
                    (replaces ec32.py:632-732 and 1224-1330 and the gather
                    at msm_stream.py:261-277);
   complete_add     K2, csrc/complete_add.cu: elementwise complete add
-                   (replaces ec32.py:343-409, 457-513, 915-1012,
-                   1152-1222).
+                   (replaces ec32.py:343-444, 457-513, 915-1012,
+                   1152-1222);
+  madd             K3, csrc/madd.cu: elementwise masked mixed add, in
+                   place, G1 (replaces ec32.py:527-630).
 
 Both formulas are RCB15 (alg. 1 any-a complete add, and its Z2 = 1 mixed
 form) with the operation order of ec32._rcb_add / _rcb_maddT_ns, and the
@@ -222,25 +224,39 @@ class ECCtx:
                           self._split(Q.reshape(flat)))
         return self._join(*R).reshape(shape)
 
+    def _madd_round(self, acc, rows, neg, active):
+        """One masked mixed-add round on plain digits: acc (X, Y, Z) +=
+        rows (N, 2, d, 10), an affine table rows' copy (modified here),
+        with Y negated where neg and the old acc kept where not active or
+        the row is flagged infinity."""
+        f = self.f
+        flagged = rows[:, 0, 0, NLIMB - 1] < 0
+        rows[:, 0, 0, NLIMB - 1] &= 0x7FFFFFFF
+        D = f.to_plain(rows)                       # (nd, N, 2, d)
+        x2 = D[:, :, 0].movedim(-1, 1)
+        y2 = D[:, :, 1].movedim(-1, 1)
+        y2 = torch.where(neg, f.neg(y2), y2)
+        new = self._rcb_madd(acc, x2, y2)
+        act = active & ~flagged
+        return tuple(torch.where(act, a, b) for a, b in zip(new, acc))
+
     def madd_accumulate_plain(self, table, perm, loads):
         """Plain version of K1 (see madd_accumulate)."""
         nwin, T, L = perm.shape
         acc = self._split(self.identity((nwin * L,), table.device))
-        f = self.f
         lds = loads.reshape(-1)
         for t in range(T):
             v = perm[:, t, :].reshape(-1).to(torch.int64) & 0xFFFFFFFF
-            rows = table[v & 0x7FFFFFFF]                 # a copy
-            flagged = rows[:, 0, 0, NLIMB - 1] < 0
-            rows[:, 0, 0, NLIMB - 1] &= 0x7FFFFFFF
-            D = f.to_plain(rows)                   # (nd, N, 2, d)
-            x2 = D[:, :, 0].movedim(-1, 1)
-            y2 = D[:, :, 1].movedim(-1, 1)
-            y2 = torch.where((v >> 31) == 1, f.neg(y2), y2)
-            new = self._rcb_madd(acc, x2, y2)
-            act = (lds > t) & ~flagged
-            acc = tuple(torch.where(act, a, b) for a, b in zip(new, acc))
+            acc = self._madd_round(acc, table[v & 0x7FFFFFFF],   # a copy
+                                   (v >> 31) == 1, lds > t)
         return self._join(*acc).reshape(nwin, L, 3, self.d, NLIMB)
+
+    def madd_plain(self, acc, q, sign, active):
+        """Plain version of K3 (see madd): returns the new accumulators
+        and leaves acc as it was."""
+        out = self._madd_round(self._split(acc), q.clone(), sign != 0,
+                               active != 0)
+        return self._join(*out).reshape(acc.shape)
 
     # -- kernel wrappers ----------------------------------------------------
     def _check(self, t, shape_tail, what):
@@ -312,6 +328,44 @@ class ECCtx:
             raise RuntimeError(f"complete_add launch failed: CUDA error {rc}")
         _LAUNCHES[("complete_add", self.name)] += 1
         return out
+
+    def madd(self, acc, q, sign, active):
+        """K3: acc (n, 3, d, 10) += q (n, 2, d, 10) affine rows, in place
+        and row by row: Y negated where sign (n,) is nonzero, the old acc
+        kept where active (n,) is zero or the row is flagged infinity.
+        Complete for acc = identity and acc = +-q.  Returns acc.  The
+        CUDA kernel is built for G1 (d = 1), EC32Ctx.madd's only form."""
+        dev = acc.device
+        n = acc.shape[0]
+        if q.device != dev or tuple(q.shape) != (n, 2, self.d, NLIMB):
+            raise ValueError("madd: q must be (n, 2, d, 10) on acc's device")
+        for t, nm in ((sign, "sign"), (active, "active")):
+            if t.device != dev or tuple(t.shape) != (n,):
+                raise ValueError(f"madd: {nm} must be (n,) on {dev}")
+        if dev.type == "cpu":
+            _PLAIN[("madd", self.name)] += 1
+            acc.copy_(self.madd_plain(acc, q, sign, active))
+            return acc
+        if dev.type != "cuda":
+            raise ValueError(f"madd: unsupported device {dev}")
+        if self.d != 1:
+            raise ValueError("madd: the kernel is built for G1 (d = 1)")
+        self._check(acc, (3, 1, NLIMB), "acc")
+        self._check(q, (2, 1, NLIMB), "q")
+        for t, nm in ((sign, "sign"), (active, "active")):
+            if t.dtype != torch.int32 or not t.is_contiguous():
+                raise ValueError(f"madd: {nm}: contiguous int32 expected")
+        from .kernels import lib
+
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib("madd").pcd_madd(
+            self.d, acc.data_ptr(), q.data_ptr(), sign.data_ptr(),
+            active.data_ptr(), n, self.kconsts.ctypes.data_as(
+                ctypes.c_void_p), stream)
+        if rc != 0:
+            raise RuntimeError(f"madd launch failed: CUDA error {rc}")
+        _LAUNCHES[("madd", self.name)] += 1
+        return acc
 
 
 @lru_cache(maxsize=None)

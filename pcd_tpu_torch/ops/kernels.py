@@ -24,7 +24,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(CSRC, "build")
 HEADERS = ("field.cuh", "ec.cuh")
 SOURCES = {"madd_accumulate": "madd_accumulate.cu",
-           "complete_add": "complete_add.cu"}
+           "complete_add": "complete_add.cu",
+           "madd": "madd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -104,8 +105,11 @@ def lib(name: str) -> ctypes.CDLL:
             L.pcd_madd_accumulate.restype = ci
             L.pcd_madd_accumulate.argtypes = [ci, vp, vp, vp, vp, cl, ci,
                                               ci, vp, vp]
-        else:
+        elif name == "complete_add":
             L.pcd_complete_add.restype = ci
             L.pcd_complete_add.argtypes = [ci, vp, vp, vp, cl, vp, vp]
+        else:
+            L.pcd_madd.restype = ci
+            L.pcd_madd.argtypes = [ci, vp, vp, vp, vp, cl, vp, vp]
         _libs[name] = L
         return L

@@ -125,7 +125,7 @@ def placeholder_proof(snark, public_input_size: int):
                 vb = _ser.snark_vk_to_bytes(snark, vk)
                 pb = _ser.snark_proof_to_bytes(snark, proof)
                 os.makedirs(cdir, exist_ok=True)
-                tmp = fname + ".tmp"
+                tmp = f"{fname}.{os.getpid()}.tmp"   # one per process
                 with open(tmp, "wb") as f:
                     f.write(_struct.pack("<I", len(vb)) + vb + pb)
                 os.replace(tmp, fname)

@@ -22,8 +22,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import torch
-
 from ...msm.host import msm as host_msm
 from ...poly.domain import EvaluationDomain
 from ...r1cs.system import ConstraintSystem
@@ -91,32 +89,6 @@ class Groth16:
 
         self.pairing = pairing_for(curve_cfg)
         self.msm = host_msm
-        self._msm_stream = None
-
-    def _msm_any(self, query, scalars):
-        """MSM over a host point list or a pre-marshalled EncodedPoints
-        table on the host tier."""
-        import numpy as np
-
-        from ...native import EncodedPoints
-
-        if isinstance(query, EncodedPoints):
-            # pre-marshalled fixed table: no host-side zero filter (the
-            # C++ bucket loop skips zero digits); zip-truncate like the
-            # list path below
-            n = min(len(query), len(scalars))
-            return self.msm(query.slice(0, n) if len(query) != n else query,
-                            scalars[:n] if len(scalars) != n else scalars)
-        if isinstance(scalars, np.ndarray):
-            # limb fast-path scalars meeting a small plain-list query
-            # (tables under the native encode threshold stay lists)
-            from ...native import limbs_to_ints
-
-            scalars = limbs_to_ints(scalars)
-        nz = [(pt, s) for pt, s in zip(query, scalars) if s]
-        if not nz:
-            return query[0].curve.infinity()
-        return self.msm([a for a, _ in nz], [b for _, b in nz])
 
     def _h_poly(self, domain, a_ev, b_ev, c_ev):
         """h = (A B - C)/Z_H on a coset (pure-Python host pipeline)."""
@@ -144,60 +116,33 @@ class Groth16:
     STREAM_MIN = 24_000
     STREAMED = ("a_query", "b_g1_query", "b_g2_query", "l_query", "h_query")
 
-    def _stream_ctx(self):
-        """Context manager placing work on the MSM side stream (a no-op on
-        the CPU)."""
-        import contextlib
-
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        if self._msm_stream is None:
-            self._msm_stream = torch.cuda.Stream(self.device)
-        return torch.cuda.stream(self._msm_stream)
-
     def _stream_launch(self, pk, z_limbs, n_inst):
         """Enqueue the a/b1/b2/l MSMs on the stream tier; returns {name:
         future}, or None for a circuit below STREAM_MIN."""
-        from ..msm_dispatch import stream_msm_async, stream_table
+        from ..msm_dispatch import side_stream, stream_launch, zpad_query
 
         if z_limbs is None or len(pk.a_query) < self.STREAM_MIN:
             return None
-        # l_query is the z vector offset by the instance columns; padding
-        # its table with n_inst flagged-infinity rows realigns it to the
-        # FULL z vector, so all four z-driven MSMs (a/b1/b2/l) share one
-        # schedule and one schedule upload
-        if n_inst:
-            if not hasattr(pk, "l_query_zpad"):
-                pk.l_query_zpad = ([self.cfg.g1.infinity()] * n_inst
-                                   + list(pk.l_query))
-            l_nm = "l_query_zpad"
-        else:
-            l_nm = "l_query"
-        names = (("a_query", self.cfg.g1),
-                 ("b_g1_query", self.cfg.g1),
-                 ("b_g2_query", self.cfg.g2),
-                 (l_nm, self.cfg.g1))
-        futs = {}
-        sched_cache = {}   # a/b1/b2 (+ padded l) share one schedule
-        with self._stream_ctx():
-            for nm, curve in names + (("h_query", self.cfg.g1),):
-                stream_table(pk, nm, curve, self.Fr.BITS, self.device)
-            with span("stream_dispatch"):
-                for nm, curve in names:
-                    futs[nm] = stream_msm_async(pk, nm, curve, self.Fr.BITS,
-                                                z_limbs, self.device,
-                                                sched_cache=sched_cache)
-        if "l_query_zpad" in futs:
-            futs["l_query"] = futs.pop("l_query_zpad")
+        # l_query is the z vector offset by the instance columns; padded,
+        # all four z-driven MSMs (a/b1/b2/l) share one schedule and one
+        # schedule upload
+        g1, g2 = self.cfg.g1, self.cfg.g2
+        l_nm = zpad_query(pk, "l_query", n_inst, g1)
+        with side_stream(self, self.device):
+            futs = stream_launch(
+                pk, (("a_query", g1), ("b_g1_query", g1),
+                     ("b_g2_query", g2), (l_nm, g1)),
+                g1, self.Fr.BITS, z_limbs, self.device)
+        futs["l_query"] = futs.pop(l_nm)
         return futs
 
     def _stream_launch_h(self, pk, futs, h_limbs):
         """Enqueue the h-query MSM once the quotient limbs land."""
-        from ..msm_dispatch import stream_msm_async
+        from ..msm_dispatch import side_stream, stream_msm_async
 
         if futs is None:
             return False
-        with self._stream_ctx(), span("stream_dispatch_h"):
+        with side_stream(self, self.device), span("stream_dispatch_h"):
             futs["h_query"] = stream_msm_async(pk, "h_query", self.cfg.g1,
                                                self.Fr.BITS, h_limbs,
                                                self.device)
@@ -413,7 +358,7 @@ class Groth16:
 
     def _prove_commit(self, pk, n_inst, z, h, r, s, z_limbs=None,
                       hybrid=None):
-        from ..msm_dispatch import host_query
+        from ..msm_dispatch import host_query, msm_any
 
         p = self.Fr.MODULUS
         # pre-marshalled limbs shared by the a/b1/b2/l MSMs
@@ -424,7 +369,7 @@ class Groth16:
                 with span(spn + "_dev"):
                     return self._stream_collect(hybrid, name)
             with span(spn):
-                return self._msm_any(host_query(pk, name), scalars)
+                return msm_any(host_query(pk, name), scalars)
 
         import numpy as np
 
@@ -457,7 +402,7 @@ class Groth16:
             hq = host_query(pk, "h_query")
             if isinstance(hq, EncodedPoints):
                 with span("msm_h"):
-                    mh = self._msm_any(hq, h)
+                    mh = msm_any(hq, h)
             else:
                 if isinstance(h, np.ndarray):
                     from ...native import limbs_to_ints

@@ -1,21 +1,27 @@
-"""MSM helpers shared by the port's provers: the counterpart of
-`pcd_tpu/snark/msm_dispatch.py`, keeping its host-table marshalling and
-its stream half (lines 142-286 there).  The device-resident legacy tier
-(DevicePointVec, the scan MSM, device fixed-base) and the device-side
-scheduler are not ported in this slice.
+"""MSM helpers shared by the port's Groth16 and GM17 provers: the
+counterpart of `pcd_tpu/snark/msm_dispatch.py`, keeping its host-table
+marshalling, the host half of `msm_any` and its stream half (lines
+142-286 there).  `stream_launch`, `zpad_query` and `side_stream` hold
+the dispatch that the reference's two provers each write inline.  The
+device-resident legacy tier (DevicePointVec, the scan MSM, device
+fixed-base) and the device-side scheduler are not ported.
 
 The stream tier runs on the device the prover was built for: on a CUDA
 device the kernels of ops/ec.py, on the CPU their plain versions.  Work is
-enqueued on the caller's current stream; each future carries the CUDA
-event recorded after it, and `stream_collect` waits on that event before
-it reads the window sums.
+enqueued on the caller's current stream (the prover's side stream); each
+future carries the CUDA event recorded after it, and `stream_collect`
+waits on that event before it reads the window sums.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import numpy as np
+import torch
+
+from ..utils.profiling import span
 
 # Stream-MSM window bits and accumulator lanes: the reference's values
 # (pcd_tpu/ops/msm_stream.py:117), kept as the starting point to measure
@@ -43,6 +49,68 @@ def host_query(owner, name: str):
         enc = encode_query(q)
         cache[name] = enc
     return enc
+
+
+def msm_any(query, scalars):
+    """MSM on the host tier over a host point list or a pre-marshalled
+    EncodedPoints table; returns a host point."""
+    from ..msm.host import msm as host_msm
+    from ..native import EncodedPoints
+
+    if isinstance(query, EncodedPoints):
+        # pre-marshalled fixed table: no host-side zero filter (the C++
+        # bucket loop skips zero digits); zip-truncate like the list path
+        n = min(len(query), len(scalars))
+        return host_msm(query.slice(0, n) if len(query) != n else query,
+                        scalars[:n] if len(scalars) != n else scalars)
+    if isinstance(scalars, np.ndarray):
+        # limb scalars meeting a small plain-list query (tables under the
+        # native encode threshold stay lists)
+        from ..native import limbs_to_ints
+
+        scalars = limbs_to_ints(scalars)
+    nz = [(pt, s) for pt, s in zip(query, scalars) if s]
+    if not nz:
+        return query[0].curve.infinity()
+    return host_msm([a for a, _ in nz], [b for _, b in nz])
+
+
+def side_stream(owner, device):
+    """Context manager placing work on `owner`'s MSM side stream, made on
+    first use (a no-op on the CPU)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    if getattr(owner, "_msm_stream", None) is None:
+        owner._msm_stream = torch.cuda.Stream(device)
+    return torch.cuda.stream(owner._msm_stream)
+
+
+def zpad_query(pk, nm: str, n_inst: int, curve) -> str:
+    """Name of pk's query `nm` realigned to the full z vector.  A query
+    over the witness columns only (z[n_inst:]) gets n_inst
+    flagged-infinity rows in front, cached on the pk as `<nm>_zpad`, so
+    it shares the schedule of the queries over all of z."""
+    if not n_inst:
+        return nm
+    pad = nm + "_zpad"
+    if not hasattr(pk, pad):
+        setattr(pk, pad, [curve.infinity()] * n_inst + list(getattr(pk, nm)))
+    return pad
+
+
+def stream_launch(pk, queries, h_curve, scalar_bits: int, z_limbs, device):
+    """Build the stream tables of `queries` ((name, curve) pairs) and of
+    h_query, then enqueue the queries' MSMs against z_limbs, one shared
+    schedule, without waiting.  Returns {name: future}."""
+    for nm, curve in tuple(queries) + (("h_query", h_curve),):
+        stream_table(pk, nm, curve, scalar_bits, device)
+    futs = {}
+    sched_cache = {}
+    with span("stream_dispatch"):
+        for nm, curve in queries:
+            futs[nm] = stream_msm_async(pk, nm, curve, scalar_bits, z_limbs,
+                                        device, sched_cache=sched_cache)
+    return futs
 
 
 def stream_table(pk, nm: str, curve, scalar_bits: int, device):

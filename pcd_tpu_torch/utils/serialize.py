@@ -1,9 +1,12 @@
 """Canonical serialization for proofs, verifying keys and proving-key
 checkpoints: the port's copy of `pcd_tpu/utils/serialize.py`, cut to the
-Groth16 cycle configs the port runs (the GM17, Marlin and ark-serialize
-compat layouts stay in the JAX package until those slices are ported).
-The byte layouts are identical, so a blob written by either package reads
-in the other (pcd_tpu_torch/convert.py relies on this).
+Groth16 and GM17 cycle configs the port runs (the Marlin and
+ark-serialize compat layouts stay in the JAX package until those slices
+are ported).  The proof and vk layouts and the Groth16 pk checkpoint are
+identical, so a blob written by either package reads in the other
+(pcd_tpu_torch/convert.py relies on this).  The JAX package checkpoints
+Groth16 pks only; the GM17 pk layout and PCD pks of GM17 and mixed
+configs are the port's own, in the same shape.
 
 Layouts (little-endian; field elements use the canonical 8*ceil(bits/64)
 byte layout of fields/prime.py):
@@ -112,46 +115,109 @@ def groth16_vk_from_bytes(cfg, data: bytes):
                      delta_g2=delta, gamma_abc=abc)
 
 
+# ---------------------------------------------------------------- GM17
+def gm17_proof_to_bytes(proof) -> bytes:
+    out = []
+    _write_point(out, proof.a)
+    _write_point(out, proof.b)
+    _write_point(out, proof.c)
+    return b"".join(out)
+
+
+def gm17_proof_from_bytes(cfg, data: bytes):
+    from ..snark.gm17.native import GM17Proof
+
+    off = 0
+    a, off = _read_point(cfg.g1, data, off)
+    b, off = _read_point(cfg.g2, data, off)
+    c, off = _read_point(cfg.g1, data, off)
+    return GM17Proof(a=a, b=b, c=c)
+
+
+def gm17_vk_to_bytes(vk) -> bytes:
+    out = []
+    _write_point(out, vk.alpha_g1)
+    _write_point(out, vk.alpha_g2)
+    _write_point(out, vk.gamma_g1)
+    _write_point(out, vk.gamma_g2)
+    _write_point(out, vk.delta_g2)
+    out.append(struct.pack("<I", len(vk.query)))
+    for p in vk.query:
+        _write_point(out, p)
+    return b"".join(out)
+
+
+def gm17_vk_from_bytes(cfg, data: bytes):
+    from ..snark.gm17.native import GM17VK
+
+    off = 0
+    a1, off = _read_point(cfg.g1, data, off)
+    a2, off = _read_point(cfg.g2, data, off)
+    g1, off = _read_point(cfg.g1, data, off)
+    g2, off = _read_point(cfg.g2, data, off)
+    d2, off = _read_point(cfg.g2, data, off)
+    (n,) = struct.unpack_from("<I", data, off)
+    off += 4
+    q = []
+    for _ in range(n):
+        p, off = _read_point(cfg.g1, data, off)
+        q.append(p)
+    return GM17VK(alpha_g1=a1, alpha_g2=a2, gamma_g1=g1, gamma_g2=g2,
+                  delta_g2=d2, query=q)
+
+
 # ---------------------------------------------------------------- PCD level
 def pcd_proof_to_bytes(pcd, proof) -> bytes:
     """Serialize a PCD proof (= the help SNARK's proof)."""
     name = type(proof).__name__
     if name == "Groth16Proof":
         return b"G16" + groth16_proof_to_bytes(proof)
+    if name == "GM17Proof":
+        return b"GM7" + gm17_proof_to_bytes(proof)
     raise TypeError(name)
 
 
 def pcd_proof_from_bytes(pcd, data: bytes):
+    help_cfg = pcd.ic.cycle.help
     tag, body = data[:3], data[3:]
     if tag == b"G16":
-        return groth16_proof_from_bytes(pcd.ic.cycle.help, body)
+        return groth16_proof_from_bytes(help_cfg, body)
+    if tag == b"GM7":
+        return gm17_proof_from_bytes(help_cfg, body)
     raise ValueError(f"unknown proof tag {tag!r}")
 
 
-def _groth16_only(snark):
+_SCHEME_SERIALIZERS = {
+    "Groth16": (groth16_vk_to_bytes, groth16_vk_from_bytes,
+                groth16_proof_to_bytes, groth16_proof_from_bytes),
+    "GM17": (gm17_vk_to_bytes, gm17_vk_from_bytes,
+             gm17_proof_to_bytes, gm17_proof_from_bytes),
+}
+
+
+def _scheme(snark, table=_SCHEME_SERIALIZERS):
+    """The serializers in `table` of a Groth16 or GM17 SNARK (the schemes
+    ported)."""
     name = type(snark).__name__
-    if name != "Groth16":
-        raise TypeError(f"{name}: only Groth16 is ported")
+    if name not in table:
+        raise TypeError(f"{name}: only Groth16 and GM17 are ported")
+    return table[name]
 
 
 def snark_vk_to_bytes(snark, vk) -> bytes:
-    _groth16_only(snark)
-    return groth16_vk_to_bytes(vk)
+    return _scheme(snark)[0](vk)
 
 
 def snark_vk_from_bytes(snark, data: bytes):
-    _groth16_only(snark)
-    return groth16_vk_from_bytes(snark.cfg, data)
+    return _scheme(snark)[1](snark.cfg, data)
 
 
 def snark_proof_to_bytes(snark, proof) -> bytes:
-    _groth16_only(snark)
-    return groth16_proof_to_bytes(proof)
+    return _scheme(snark)[2](proof)
 
 
 def snark_proof_from_bytes(snark, data: bytes):
-    _groth16_only(snark)
-    return groth16_proof_from_bytes(snark.cfg, data)
+    return _scheme(snark)[3](snark.cfg, data)
 
 
 # ------------------------------------------------- proving-key checkpoints
@@ -224,15 +290,64 @@ def groth16_pk_from_bytes(cfg, data: bytes):
                      domain_size=dom)
 
 
+def gm17_pk_to_bytes(pk) -> bytes:
+    """The port's GM17 pk checkpoint, in groth16_pk_to_bytes' shape: u64
+    vk length, the vk (its `query` included), delta_g1, delta_g2, then
+    a_query, b_query, c_query and h_query each u64-length-prefixed, then
+    u32 num_instance, num_vars and domain_size."""
+    vk_b = gm17_vk_to_bytes(pk.vk)
+    out = [struct.pack("<Q", len(vk_b)), vk_b]
+    _write_point(out, pk.delta_g1)
+    _write_point(out, pk.delta_g2)
+    for q in (pk.a_query, pk.b_query, pk.c_query, pk.h_query):
+        qo = []
+        _write_query(qo, q)
+        blob = b"".join(qo)
+        out.append(struct.pack("<Q", len(blob)))
+        out.append(blob)
+    out.append(struct.pack("<III", pk.num_instance, pk.num_vars,
+                           pk.domain_size))
+    return b"".join(out)
+
+
+def gm17_pk_from_bytes(cfg, data: bytes):
+    from ..snark.gm17.native import GM17PK
+
+    (vk_len,) = struct.unpack_from("<Q", data, 0)
+    off = 8
+    vk = gm17_vk_from_bytes(cfg, data[off : off + vk_len])
+    off += vk_len
+    delta_g1, off = _read_point(cfg.g1, data, off)
+    delta_g2, off = _read_point(cfg.g2, data, off)
+    queries = []
+    for curve in (cfg.g1, cfg.g2, cfg.g1, cfg.g1):
+        (blen,) = struct.unpack_from("<Q", data, off)
+        off += 8
+        q, _ = _read_query(curve, data[off : off + blen], 0)
+        off += blen
+        queries.append(q)
+    n_inst, n_vars, dom = struct.unpack_from("<III", data, off)
+    return GM17PK(vk=vk, delta_g1=delta_g1, delta_g2=delta_g2,
+                  a_query=queries[0], b_query=queries[1],
+                  c_query=queries[2], h_query=queries[3],
+                  num_instance=n_inst, num_vars=n_vars, domain_size=dom)
+
+
+_PK_SERIALIZERS = {"Groth16": (groth16_pk_to_bytes, groth16_pk_from_bytes),
+                   "GM17": (gm17_pk_to_bytes, gm17_pk_from_bytes)}
+
+
 def pcd_pk_to_bytes(pcd, pk) -> bytes:
-    """ECCyclePCDPK checkpoint (Groth16/Groth16 configs)."""
+    """ECCyclePCDPK checkpoint, any mix of Groth16 and GM17: u32 CRH-seed
+    length and the seed, then the main pk, the help pk and the help vk,
+    each u64-length-prefixed in its SNARK's layout.  For Groth16/Groth16
+    the bytes are the JAX package's."""
     ic = pcd.ic
-    assert type(ic.main_snark).__name__ == "Groth16" \
-        and type(ic.help_snark).__name__ == "Groth16", \
-        "pk checkpointing currently covers the Groth16 cycle configs"
-    main_b = groth16_pk_to_bytes(pk.main_pk)
-    help_b = groth16_pk_to_bytes(pk.help_pk)
-    help_vk_b = groth16_vk_to_bytes(pk.help_vk)
+    main_to, _ = _scheme(ic.main_snark, _PK_SERIALIZERS)
+    help_to, _ = _scheme(ic.help_snark, _PK_SERIALIZERS)
+    main_b = main_to(pk.main_pk)
+    help_b = help_to(pk.help_pk)
+    help_vk_b = snark_vk_to_bytes(ic.help_snark, pk.help_vk)
     out = [struct.pack("<I", len(pk.crh_pp.seed)), pk.crh_pp.seed]
     for blob in (main_b, help_b, help_vk_b):
         out.append(struct.pack("<Q", len(blob)))
@@ -255,9 +370,11 @@ def pcd_pk_from_bytes(pcd, data: bytes):
         off += 8
         blobs.append(data[off : off + blen])
         off += blen
-    main_pk = groth16_pk_from_bytes(ic.cycle.main, blobs[0])
-    help_pk = groth16_pk_from_bytes(ic.cycle.help, blobs[1])
-    help_vk = groth16_vk_from_bytes(ic.cycle.help, blobs[2])
+    _, main_from = _scheme(ic.main_snark, _PK_SERIALIZERS)
+    _, help_from = _scheme(ic.help_snark, _PK_SERIALIZERS)
+    main_pk = main_from(ic.cycle.main, blobs[0])
+    help_pk = help_from(ic.cycle.help, blobs[1])
+    help_vk = snark_vk_from_bytes(ic.help_snark, blobs[2])
     main_pvk = ic.main_snark.process_vk(main_pk.vk)
     return ECCyclePCDPK(crh_pp=CRHParams(seed=seed), main_pk=main_pk,
                         main_pvk=main_pvk, help_pk=help_pk, help_vk=help_vk)
@@ -265,11 +382,10 @@ def pcd_pk_from_bytes(pcd, data: bytes):
 
 def pcd_vk_to_bytes(pcd, vk) -> bytes:
     """ECCyclePCDVK = (crh seed, help vk): the seed and help-vk blobs in
-    the pk checkpoint's layout (u32 seed length + seed, then
-    groth16_vk_to_bytes of the help vk)."""
-    _groth16_only(pcd.ic.help_snark)
+    the pk checkpoint's layout (u32 seed length + seed, then the help
+    SNARK's vk bytes)."""
     return (struct.pack("<I", len(vk.crh_pp.seed)) + vk.crh_pp.seed
-            + groth16_vk_to_bytes(vk.help_vk))
+            + snark_vk_to_bytes(pcd.ic.help_snark, vk.help_vk))
 
 
 def pcd_vk_from_bytes(pcd, data: bytes):
@@ -278,5 +394,5 @@ def pcd_vk_from_bytes(pcd, data: bytes):
 
     (slen,) = struct.unpack_from("<I", data, 0)
     seed = bytes(data[4 : 4 + slen])
-    help_vk = groth16_vk_from_bytes(pcd.ic.cycle.help, data[4 + slen:])
+    help_vk = snark_vk_from_bytes(pcd.ic.help_snark, data[4 + slen:])
     return ECCyclePCDVK(crh_pp=CRHParams(seed=seed), help_vk=help_vk)

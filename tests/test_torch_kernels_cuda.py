@@ -82,3 +82,59 @@ def test_stream_msm_on_card(form, cuda_device):
     table = sctx.table_from_limbs(xs, ys, inf, cuda_device)
     limbs = sctx.limb_rows(scalars, (cfg.Fr.BITS + 63) // 64 * 8)
     assert sctx.msm_limbs(table, limbs) == host_msm(pts, scalars)
+
+
+G1_FORMS = [f for f in FORMS if f[2] == "g1"] + [("toy_cycle", "help", "g1")]
+G1_IDS = ["-".join(f) for f in G1_FORMS]
+
+
+def _madd_inputs(form, device, n=300, m=64):
+    """K3 operands: acc from K1's outputs with a tenth set to the identity
+    and a tenth to Q (Z = 1); q gathered from a table with a flagged row;
+    mixed signs, about a quarter of the rows inactive."""
+    _, curve, _, xs, ys, inf = _table(form, m, 5)
+    ec = ec_ctx(curve)
+    table = torch.from_numpy(ec.table_from_u64(xs, ys, inf)).to(device)
+    rng = np.random.default_rng(6)
+    idx = rng.integers(0, m, n).astype(np.uint32)
+    sign = rng.integers(0, 2, n).astype(np.int32)
+    active = (rng.random(n) >= 0.25).astype(np.int32)
+    perm = torch.from_numpy(rng.integers(0, m, (1, 2, n)).astype(np.int32))
+    acc = ec.madd_accumulate(table, perm.to(device), torch.full(
+        (1, n), 2, dtype=torch.int32, device=device))[0].contiguous()
+    q = table[torch.from_numpy(idx.astype(np.int64)).to(device)].contiguous()
+    k = n // 10
+    acc[:2 * k] = ec.identity((2 * k,), device)
+    acc[k:2 * k, :2] = q[k:2 * k]
+    acc[k:2 * k, 0, 0, 9] &= 0x7FFFFFFF
+    acc[k:2 * k, 2] = acc[:k, 1]
+    return (ec, table, acc, q, idx, torch.from_numpy(sign).to(device),
+            torch.from_numpy(active).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", G1_FORMS, ids=G1_IDS)
+def test_madd_matches_plain(form, cuda_device):
+    ec, _, acc, q, _, sign, active = _madd_inputs(form, cuda_device)
+    want = ec.madd_plain(acc, q, sign, active)
+    before = launch_counts().get(("madd", ec.name), 0)
+    got = ec.madd(acc, q, sign, active)
+    assert got is acc
+    assert launch_counts()[("madd", ec.name)] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", G1_FORMS, ids=G1_IDS)
+def test_madd_equals_k1_at_t1(form, cuda_device):
+    """From the identity, K3 and K1 with T = 1 (loads = active) give the
+    same limbs."""
+    ec, table, _, q, idx, sign, active = _madd_inputs(form, cuda_device)
+    n = q.shape[0]
+    got = ec.madd(ec.identity((n,), cuda_device), q, sign, active)
+    perm = (idx | (sign.cpu().numpy().astype(np.uint32) << 31)).view(
+        np.int32)
+    k1 = ec.madd_accumulate(table, torch.from_numpy(perm.reshape(1, 1, n))
+                            .to(cuda_device), active.reshape(1, n))
+    assert torch.equal(k1.reshape(got.shape), got)

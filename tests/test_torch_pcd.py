@@ -11,6 +11,7 @@ import os
 import struct
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -33,6 +34,32 @@ from pcd_tpu_torch.utils.rng import ChaChaRng as TRng  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two intra-op threads for the plain versions: the suite runs six
+    test processes on a few cores, where torch's default of one thread
+    per core oversubscribes them; alone, two threads lose little."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_native_loaded():
+    """pcd_tpu builds its C++ tier at first use through one temporary
+    that every process shares (ROADMAP section C), so a test worker can
+    meet another worker's half-written library: retry until it loads."""
+    from pcd_tpu import native as reference_native
+
+    for _ in range(60):
+        try:
+            reference_native.available()
+            return
+        except OSError:
+            time.sleep(1)
+
+
 def _predicate(base, field):
     class Counter(base):
         """msg == prior_msg + witness (reference tests/mnt4_groth16.rs)."""
@@ -43,6 +70,17 @@ def _predicate(base, field):
             (priors[0] + wit).enforce_equal(msg)
 
     return Counter(field)
+
+
+def _make_placeholders(pcd, pred, pk):
+    """The base case's placeholder (vk, proof) pairs of both SNARKs, made
+    (or read from .placeholder_cache) before the counted proves: a
+    process without the cache files makes them inside its first prove,
+    and their MSMs would count as the chain's."""
+    from pcd_tpu_torch.pcd.ec_cycle import HelpCircuit, MainCircuit
+
+    MainCircuit(pcd.ic, pred, pk.crh_pp)._resolved()
+    HelpCircuit(pcd.ic, pk.main_pvk)._resolved()
 
 
 @pytest.mark.pcd_toy
@@ -74,6 +112,7 @@ def test_toy_chain_matches_reference(monkeypatch):
     monkeypatch.setattr(Groth16, "STREAM_MIN", 0)
     monkeypatch.setattr(msm_dispatch, "WINDOW_BITS", 8)
     monkeypatch.setattr(msm_dispatch, "LANES", 2048)
+    _make_placeholders(tpcd, tpred, tpk)
     tec.reset_launch_counts()
     rng = TRng(b"torch port prove")
     one_t = TF.from_int(1)
