@@ -3,7 +3,7 @@
 plain versions.  Run from the root of a checkout with one CUDA card:
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --phases 1,6   # a subset (1 must be among them)
+    python3 chip_smoke.py --phases 1,6   # a subset of 1, 2, 3, 4, 6
 
 Phases, one output line each, then a `kernels` JSON line and the final
 status line:
@@ -28,13 +28,14 @@ status line:
   5  each kernel again on the inputs of its first launch in the warm step
      (K1: the a-query or b_g2 MSM; K2: the first suffix-scan step),
      exactly against its plain version, with CUDA-event times: these are
-     the numbers of the `kernels` line.  Runs after every chain phase,
-     on that chain's inputs;
+     the numbers of the `kernels` line.  Runs after every chain of phases
+     4 and 6, on that chain's inputs, and cannot be chosen alone;
   6  phases 4 and 5 for the real-cycle GM17 chain mnt4_gm17 and the
      mixed chains mnt4_mix_groth16_gm17 and mnt4_mix_gm17_groth16, each
      at full width; K1 exactly once per commitment MSM of either SNARK.
-Any failure exits non-zero without the final line.  Nothing here imports
-JAX or the JAX package.
+Phase 1 always runs.  K3's `launches` sums its launches over the chains
+run (null when none ran).  Any failure exits non-zero without the final
+line.  Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -308,7 +309,7 @@ def record(kernel, form, D, err, ms, plain_ms, nbytes, mads):
     t_ops = mads / INT32_MAD_PER_S * 1e3
     return {"name": f"{kernel}[{form}]", "route": "cuda",
             "source": SOURCES[kernel], "replaces": REPLACES[(kernel, D)],
-            "launches": 0, "max_abs_err": err, "ms": ms,
+            "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None}
@@ -361,11 +362,15 @@ def phase_msm(dev="cuda", log_n=18):
 
 
 class LaunchProbe:
-    """While `on`, wraps the two kernel wrappers of ops/ec.py: the first
-    call per (kernel, curve) keeps its inputs, and every call on the card
-    gets CUDA events around it on the caller's current stream (the MSM
-    side stream in the prover's background thread).  The wrappers' launch
-    counters are untouched; leaving the `with` restores the wrappers."""
+    """While `on`, wraps the three kernel wrappers of ops/ec.py: the first
+    call per (kernel, curve) keeps its inputs (K3's accumulator, which it
+    updates in place, as a copy), and every call on the card gets CUDA
+    events around it on the caller's current stream (the MSM side stream
+    in the prover's background thread).  The wrappers' launch counters are
+    untouched; leaving the `with` restores the wrappers."""
+
+    WRAPPED = (("madd_accumulate", "madd_accumulate"),
+               ("complete_add", "add"), ("madd", "madd"))
 
     def __init__(self):
         self.on = False
@@ -377,14 +382,17 @@ class LaunchProbe:
 
         from pcd_tpu_torch.ops.ec import ECCtx
 
-        self._orig = (ECCtx.madd_accumulate, ECCtx.add)
+        self._orig = {attr: getattr(ECCtx, attr) for _, attr in self.WRAPPED}
 
         def wrap(kernel, fn):
             def probed(ctx, *args):
                 if not self.on:
                     return fn(ctx, *args)
                 key = (kernel, ctx.name)
-                self.first.setdefault(key, (ctx, args))
+                if key not in self.first:
+                    kept = ((args[0].clone(),) + args[1:] if kernel == "madd"
+                            else args)
+                    self.first[key] = (ctx, kept)
                 if args[0].device.type != "cuda":
                     return fn(ctx, *args)
                 a = torch.cuda.Event(enable_timing=True)
@@ -396,14 +404,15 @@ class LaunchProbe:
                 return out
             return probed
 
-        ECCtx.madd_accumulate = wrap("madd_accumulate", self._orig[0])
-        ECCtx.add = wrap("complete_add", self._orig[1])
+        for kernel, attr in self.WRAPPED:
+            setattr(ECCtx, attr, wrap(kernel, self._orig[attr]))
         return self
 
     def __exit__(self, *exc):
         from pcd_tpu_torch.ops.ec import ECCtx
 
-        ECCtx.madd_accumulate, ECCtx.add = self._orig
+        for attr, fn in self._orig.items():
+            setattr(ECCtx, attr, fn)
 
     def device_ms(self):
         """{(kernel, curve name): summed CUDA-event ms of its launches}."""
@@ -548,16 +557,25 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
             shape = (f"{nwin}x{L} lanes, T={T}, {madds} mixed adds, "
                      f"{table.shape[0]}-row table")
             reps = 5
+        elif kernel == "madd":
+            acc, q, sign, active = args
+            n = acc.shape[0]
+            live = int(((active != 0) & ~(q[:, 0, 0, -1] < 0)).sum())
+            nbytes = (2 * acc.numel() + q.numel() + 2 * n) * 4
+            mads = live * MULS_MADD * PRODUCTS[D] * 2
+            shape = f"{n} rows, {live} mixed adds"
+            reps = 10
         else:
             n = args[0].numel() // ec.point_words
             nbytes = 3 * args[0].numel() * 4
             mads = n * MULS_ADD * PRODUCTS[D] * 2
             shape = f"{n} pairs"
             reps = 10
-        kern = getattr(ec, "madd_accumulate" if kernel == "madd_accumulate"
-                       else "add")
+        kern = getattr(ec, dict(LaunchProbe.WRAPPED)[kernel])
         plain = getattr(ec, kernel + "_plain")
-        got = kern(*args)
+        # K3 updates its accumulator in place: it runs on a copy
+        own = (args[0].clone(),) + args[1:] if kernel == "madd" else args
+        got = kern(*own)
         sync(dev)
         t0 = time.perf_counter()
         want = plain(*args)
@@ -567,7 +585,7 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
         if err:
             raise AssertionError(f"{kernel}[{form}] on the warm step's "
                                  f"inputs: kernel != plain")
-        ms = device_ms(lambda: kern(*args), reps, dev)
+        ms = device_ms(lambda: kern(*own), reps, dev)
         rec = record(kernel, form, D, err, ms, plain_ms, nbytes, mads)
         rec["name"] += tag
         rec["launches"] = counts.get((kernel, form), 0)
@@ -581,7 +599,13 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
 def main(argv):
     phases = {1, 2, 3, 4, 6}
     if "--phases" in argv:
-        phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
+        asked = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
+        if asked - phases:
+            print(f"chip_smoke: no phase {sorted(asked - phases)} to choose "
+                  f"(phases: 1, 2, 3, 4, 6; 5 runs with 4 and 6)",
+                  file=sys.stderr)
+            return 2
+        phases = asked | {1}
     if not os.path.isdir(os.path.join(HERE, "pcd_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository "
               "(pcd_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -595,17 +619,23 @@ def main(argv):
     t_start = time.perf_counter()
     results = []
     card = phase_build()
-    if 2 in phases:
-        results += phase_kernels()       # K3: on no path, 0 launches
+    k3 = phase_kernels() if 2 in phases else []
+    results += k3
     if 3 in phases:
         phase_msm()
+    chain_counts = []
     for ph in sorted(set(CHAINS) & phases):
         for name in CHAINS[ph]:
             t0 = time.perf_counter()
             counts, probe = phase_chain(name, ph)
+            chain_counts.append(counts)
             phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
             say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
                     f"first-launch kernel checks")
+    for rec in k3:                       # K3's launches on the chains run
+        form = rec["name"][len("madd["):-1]
+        rec["launches"] = (sum(c.get(("madd", form), 0) for c in chain_counts)
+                           if chain_counts else None)
     say("all", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": results}), flush=True)

@@ -18,93 +18,71 @@ from .snark.gm17.native import GM17
 from .snark.groth16.gadget import Groth16VerifierGadget
 from .snark.groth16.native import Groth16
 
+# SNARK kind -> (prover, verifier gadget)
+_SNARKS = {"groth16": (Groth16, Groth16VerifierGadget),
+           "gm17": (GM17, GM17VerifierGadget)}
 
-def _groth16_config(cycle, device) -> ECCyclePCDConfig:
+
+def _config(cycle, main_kind: str, help_kind: str,
+            device) -> ECCyclePCDConfig:
+    (main_snark, main_gadget), (help_snark, help_gadget) = (
+        _SNARKS[main_kind], _SNARKS[help_kind])
     return ECCyclePCDConfig(
         cycle=cycle,
         crh=BoweHopwoodCRH(cycle.crh_te),
-        main_snark=Groth16(cycle.main, device=device),
-        help_snark=Groth16(cycle.help, device=device),
-        main_gadget=Groth16VerifierGadget(cycle.main),
-        help_gadget=Groth16VerifierGadget(cycle.help),
+        main_snark=main_snark(cycle.main, device=device),
+        help_snark=help_snark(cycle.help, device=device),
+        main_gadget=main_gadget(cycle.main),
+        help_gadget=help_gadget(cycle.help),
     )
 
 
 @lru_cache(maxsize=None)
-def _toy_groth16(device) -> ECCyclePCD:
-    return ECCyclePCD(_groth16_config(M.toy_cycle(), device))
-
-
-@lru_cache(maxsize=None)
-def _mnt4_groth16(device) -> ECCyclePCD:
-    return ECCyclePCD(_groth16_config(M.mnt_cycle(), device))
+def _pcd(cycle_name: str, main_kind: str, help_kind: str,
+         device) -> ECCyclePCD:
+    cycle = M.toy_cycle() if cycle_name == "toy" else M.mnt_cycle()
+    return ECCyclePCD(_config(cycle, main_kind, help_kind, device))
 
 
 def toy_groth16(device=None) -> ECCyclePCD:
     """Toy-cycle Groth16 PCD (fast tests)."""
-    return _toy_groth16(resolve_device(device))
+    return _pcd("toy", "groth16", "groth16", resolve_device(device))
 
 
 def mnt4_groth16(device=None) -> ECCyclePCD:
     """The reference's PCDGroth16Mnt4 (tests/mnt4_groth16.rs:22-30):
     Groth16<MNT4-298> main / Groth16<MNT6-298> help, Bowe-Hopwood CRH."""
-    return _mnt4_groth16(resolve_device(device))
-
-
-def _gm17_config(cycle, main_kind: str, help_kind: str,
-                 device) -> ECCyclePCDConfig:
-    def mk(kind, curve):
-        if kind == "groth16":
-            return Groth16(curve, device=device), Groth16VerifierGadget(curve)
-        return GM17(curve, device=device), GM17VerifierGadget(curve)
-
-    main_snark, main_gadget = mk(main_kind, cycle.main)
-    help_snark, help_gadget = mk(help_kind, cycle.help)
-    return ECCyclePCDConfig(
-        cycle=cycle,
-        crh=BoweHopwoodCRH(cycle.crh_te),
-        main_snark=main_snark,
-        help_snark=help_snark,
-        main_gadget=main_gadget,
-        help_gadget=help_gadget,
-    )
-
-
-@lru_cache(maxsize=None)
-def _gm17_pcd(cycle_name: str, main_kind: str, help_kind: str,
-              device) -> ECCyclePCD:
-    cycle = M.toy_cycle() if cycle_name == "toy" else M.mnt_cycle()
-    return ECCyclePCD(_gm17_config(cycle, main_kind, help_kind, device))
+    return _pcd("mnt", "groth16", "groth16", resolve_device(device))
 
 
 def toy_gm17(device=None) -> ECCyclePCD:
     """Toy-cycle GM17 PCD (fast tests)."""
-    return _gm17_pcd("toy", "gm17", "gm17", resolve_device(device))
+    return _pcd("toy", "gm17", "gm17", resolve_device(device))
 
 
 def mnt4_gm17(device=None) -> ECCyclePCD:
     """The reference's PCDGm17Mnt4 (tests/mnt4_gm17.rs:23-31): GM17 on
     both sides of the MNT4-298/MNT6-298 cycle."""
-    return _gm17_pcd("mnt", "gm17", "gm17", resolve_device(device))
+    return _pcd("mnt", "gm17", "gm17", resolve_device(device))
 
 
 def toy_mix_groth16_gm17(device=None) -> ECCyclePCD:
     """Toy-cycle Groth16 main / GM17 help PCD."""
-    return _gm17_pcd("toy", "groth16", "gm17", resolve_device(device))
+    return _pcd("toy", "groth16", "gm17", resolve_device(device))
 
 
 def toy_mix_gm17_groth16(device=None) -> ECCyclePCD:
     """Toy-cycle GM17 main / Groth16 help PCD."""
-    return _gm17_pcd("toy", "gm17", "groth16", resolve_device(device))
+    return _pcd("toy", "gm17", "groth16", resolve_device(device))
 
 
 def mnt4_mix_groth16_gm17(device=None) -> ECCyclePCD:
     """Reference tests/mnt4_mix_groth16gm17.rs:24-32: Groth16<MNT4-298>
     main / GM17<MNT6-298> help."""
-    return _gm17_pcd("mnt", "groth16", "gm17", resolve_device(device))
+    return _pcd("mnt", "groth16", "gm17", resolve_device(device))
 
 
 def mnt4_mix_gm17_groth16(device=None) -> ECCyclePCD:
     """Reference tests/mnt4_mix_gm17groth16.rs:24-32: GM17<MNT4-298> main
     / Groth16<MNT6-298> help."""
-    return _gm17_pcd("mnt", "gm17", "groth16", resolve_device(device))
+    return _pcd("mnt", "gm17", "groth16", resolve_device(device))

@@ -15,82 +15,27 @@ CPU with the plain versions of the kernels:
 """
 
 import struct
-import time
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from pcd_tpu import configs as RC  # noqa: E402
 from pcd_tpu.curves import models as RM  # noqa: E402
-from pcd_tpu.pcd.api import FpPredicate as RPredicate  # noqa: E402
 from pcd_tpu.snark.gm17.native import GM17 as RGM17  # noqa: E402
 from pcd_tpu.utils import serialize as RS  # noqa: E402
 from pcd_tpu.utils.rng import ChaChaRng as RRng  # noqa: E402
-from pcd_tpu_torch import configs as TC  # noqa: E402
-from pcd_tpu_torch import convert  # noqa: E402
 from pcd_tpu_torch.curves import models as TM  # noqa: E402
 from pcd_tpu_torch.gadgets.fp import fpvar_class  # noqa: E402
 from pcd_tpu_torch.ops import ec as tec  # noqa: E402
-from pcd_tpu_torch.pcd.api import FpPredicate as TPredicate  # noqa: E402
 from pcd_tpu_torch.snark import msm_dispatch  # noqa: E402
 from pcd_tpu_torch.snark.gm17.native import GM17  # noqa: E402
-from pcd_tpu_torch.snark.groth16.native import Groth16  # noqa: E402
 from pcd_tpu_torch.utils import serialize as TS  # noqa: E402
 from pcd_tpu_torch.utils.rng import ChaChaRng as TRng  # noqa: E402
 
-# K1 launches per prove: (G1, G2)
-K1_PER_PROVE = {"Groth16": (4, 1), "GM17": (3, 1)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_torch_threads():
-    """Two intra-op threads for the plain versions: the suite runs six
-    test processes on a few cores, where torch's default of one thread
-    per core oversubscribes them; alone, two threads lose little."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def reference_native_loaded():
-    """pcd_tpu builds its C++ tier at first use through one temporary
-    that every process shares (ROADMAP section C), so a test worker can
-    meet another worker's half-written library: retry until it loads."""
-    from pcd_tpu import native as reference_native
-
-    for _ in range(60):
-        try:
-            reference_native.available()
-            return
-        except OSError:
-            time.sleep(1)
-
-
-def _predicate(base, field):
-    class Counter(base):
-        """msg == prior_msg + witness (reference tests/mnt4_gm17.rs)."""
-
-        PRIOR_MSG_LEN = 1
-
-        def generate_constraints(self, cs, msg, wit, priors, base_case):
-            (priors[0] + wit).enforce_equal(msg)
-
-    return Counter(field)
-
-
-def _make_placeholders(pcd, pred, pk):
-    """The base case's placeholder (vk, proof) pairs of both SNARKs, made
-    (or read from .placeholder_cache) before the counted proves: a
-    process without the cache files makes them inside its first prove,
-    and their MSMs would count as the chain's."""
-    from pcd_tpu_torch.pcd.ec_cycle import HelpCircuit, MainCircuit
-
-    MainCircuit(pcd.ic, pred, pk.crh_pp)._resolved()
-    HelpCircuit(pcd.ic, pk.main_pvk)._resolved()
+from _torch_support import SquareChain  # noqa: E402
+from _torch_support import reference_native_loaded  # noqa: E402,F401
+from _torch_support import toy_chain_matches_reference  # noqa: E402
+from _torch_support import two_torch_threads  # noqa: E402,F401
 
 
 def _ref_gm17_pk_bytes(pk):
@@ -134,7 +79,6 @@ def streamed(monkeypatch):
     """Every circuit's commitment MSMs on the stream tier; the toy's MSMs
     take windows of 8 bits on 2048 lanes (the card's 12 and 8192 cost the
     plain versions several times more here)."""
-    monkeypatch.setattr(Groth16, "STREAM_MIN", 0)
     monkeypatch.setattr(GM17, "STREAM_MIN", 0)
     monkeypatch.setattr(msm_dispatch, "WINDOW_BITS", 8)
     monkeypatch.setattr(msm_dispatch, "LANES", 2048)
@@ -143,54 +87,9 @@ def streamed(monkeypatch):
 @pytest.mark.pcd_toy
 @pytest.mark.parametrize("name", ["toy_gm17", "toy_mix_groth16_gm17",
                                   "toy_mix_gm17_groth16"])
-def test_toy_chain_matches_reference(name, streamed):
-    rpcd = getattr(RC, name)()
-    F = rpcd.ic.main_field
-    rpred = _predicate(RPredicate, F)
-    pk, vk = rpcd.circuit_specific_setup(rpred, RRng(b"torch gm17 setup"))
-    rng = RRng(b"torch gm17 prove")
-    one = F.from_int(1)
-    ref1 = rpcd.prove(pk, rpred, one, one, [], [], rng)
-    ref2 = rpcd.prove(pk, rpred, F.from_int(2), one, [one], [ref1], rng)
-
-    tpcd = getattr(TC, name)(device="cpu")
-    TF = tpcd.ic.main_field
-    tpred = _predicate(TPredicate, TF)
-    blob = np.frombuffer(_ref_pcd_pk_bytes(rpcd, pk), dtype=np.uint8)
-    tpk = convert.pcd_pk_from_reference(tpcd, blob)
-    assert TS.pcd_pk_to_bytes(tpcd, tpk) == blob.tobytes()
-    seed = vk.crh_pp.seed
-    vk_blob = np.frombuffer(
-        struct.pack("<I", len(seed)) + seed
-        + RS.snark_vk_to_bytes(rpcd.ic.help_snark, vk.help_vk),
-        dtype=np.uint8)
-    tvk = convert.pcd_vk_from_reference(tpcd, vk_blob)
-    assert TS.pcd_vk_to_bytes(tpcd, tvk) == vk_blob.tobytes()
-
-    _make_placeholders(tpcd, tpred, tpk)
-    tec.reset_launch_counts()
-    rng = TRng(b"torch gm17 prove")
-    one_t = TF.from_int(1)
-    p1 = tpcd.prove(tpk, tpred, one_t, one_t, [], [], rng)
-    p2 = tpcd.prove(tpk, tpred, TF.from_int(2), one_t, [one_t], [p1], rng)
-    plain = tec.plain_counts()
-
-    assert TS.pcd_proof_to_bytes(tpcd, p1) == RS.pcd_proof_to_bytes(rpcd,
-                                                                    ref1)
-    assert TS.pcd_proof_to_bytes(tpcd, p2) == RS.pcd_proof_to_bytes(rpcd,
-                                                                    ref2)
-    assert tpcd.verify(tvk, tpred, one_t, p1)
-    assert tpcd.verify(tvk, tpred, TF.from_int(2), p2)
-    assert not tpcd.verify(tvk, tpred, one_t, p2)
-    ic = tpcd.ic
-    for cfg, snark in ((ic.cycle.main, ic.main_snark),
-                       (ic.cycle.help, ic.help_snark)):
-        g1, g2 = K1_PER_PROVE[type(snark).__name__]
-        assert plain[("madd_accumulate", cfg.g1.name)] == 2 * g1
-        assert plain[("madd_accumulate", cfg.g2.name)] == 2 * g2
-        assert plain[("complete_add", cfg.g1.name)] > 0
-        assert plain[("complete_add", cfg.g2.name)] > 0
-    assert tec.launch_counts() == {}
+def test_toy_chain_matches_reference(name, monkeypatch):
+    toy_chain_matches_reference(name, _ref_pcd_pk_bytes, b"torch gm17",
+                                monkeypatch)
 
 
 class MulCircuit:
@@ -206,25 +105,6 @@ class MulCircuit:
         b = V.new_witness(self.b)
         (a * b).enforce_equal(x)
         (a + b).enforce_equal(V.new_witness(self.a + self.b))
-
-
-class SquareChain:
-    """x (public) = a^(2^k): k witnesses squared in turn, enough SAP
-    variables for native-encoded query tables."""
-
-    def __init__(self, a=3, k=40):
-        self.a, self.k = a, k
-
-    def generate_constraints(self, cs):
-        V = fpvar_class(cs)
-        v = self.a
-        for _ in range(self.k):
-            v = v * v % cs.p
-        x = V.new_instance(v)
-        cur = V.new_witness(self.a)
-        for _ in range(self.k):
-            cur = cur * cur
-        cur.enforce_equal(x)
 
 
 CURVES = ["toy_mnt4", "toy_mnt6"]

@@ -10,30 +10,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pcd_tpu_torch.curves import models as M  # noqa: E402
-from pcd_tpu_torch.gadgets.fp import fpvar_class  # noqa: E402
 from pcd_tpu_torch.ops import ec  # noqa: E402
 from pcd_tpu_torch.snark import msm_dispatch  # noqa: E402
 from pcd_tpu_torch.snark.groth16.native import Groth16  # noqa: E402
 from pcd_tpu_torch.utils.rng import ChaChaRng  # noqa: E402
 
-
-class SquareChain:
-    """x (public) = a^(2^k): k witnesses squared in turn, enough variables
-    for native-encoded query tables."""
-
-    def __init__(self, a=3, k=40):
-        self.a, self.k = a, k
-
-    def generate_constraints(self, cs):
-        V = fpvar_class(cs)
-        v = self.a
-        for _ in range(self.k):
-            v = v * v % cs.p
-        x = V.new_instance(v)
-        cur = V.new_witness(self.a)
-        for _ in range(self.k):
-            cur = cur * cur
-        cur.enforce_equal(x)
+from _torch_support import SquareChain  # noqa: E402
 
 
 @pytest.fixture

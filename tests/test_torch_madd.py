@@ -15,8 +15,6 @@ with numpy from a seed and cross as u64 limb arrays; results are
 compared as affine points, exactly (modular integer arithmetic).
 """
 
-import time
-
 import numpy as np
 import pytest
 
@@ -31,25 +29,12 @@ from pcd_tpu.ops.ec32 import EC32Ctx  # noqa: E402
 from pcd_tpu_torch.curves import models as TM  # noqa: E402
 from pcd_tpu_torch.ops import ec as tec  # noqa: E402
 
+from _torch_support import reference_native_loaded  # noqa: E402,F401
+
 FORMS = [("toy_cycle", "main"), ("toy_cycle", "help"), ("mnt_cycle", "main"),
          ("mnt_cycle", "help")]
 IDS = ["-".join(f) for f in FORMS]
 N = 48
-
-
-@pytest.fixture(autouse=True, scope="module")
-def reference_native_loaded():
-    """pcd_tpu builds its C++ tier at first use through one temporary
-    that every process shares (ROADMAP section C), so a test worker can
-    meet another worker's half-written library: retry until it loads."""
-    from pcd_tpu import native as reference_native
-
-    for _ in range(60):
-        try:
-            reference_native.available()
-            return
-        except OSError:
-            time.sleep(1)
 
 
 def _affine(P):
