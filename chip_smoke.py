@@ -16,25 +16,32 @@ status line:
      zero loads and infinity-flagged rows, K2 on 204800 pairs with P = Q,
      P = -Q and identities; for G1, K3 on K1's 204800 outputs with mixed
      signs, a quarter of the rows inactive, acc = identity and acc = Q
-     rows, and once more from the identity against K1 at T = 1; exact
-     equality of the limbs; CUDA-event times at these shapes;
+     rows, and once more from the identity against K1 at T = 1; K4 on K1's
+     25 x 8192 outputs for a real C++ schedule of 2^16 298-bit scalars
+     (c = 12) with an all-zero window, a window whose digits all fall in
+     one bucket (the run of maxrun lanes) and P, -P in every bucket of
+     one scalar, against its plain version and, as affine points, against
+     the K2-step finish (StreamMSMCtx.finish_steps), both timed in turns;
+     exact equality of the limbs; CUDA-event times at these shapes;
   3  one 2^18-point MNT4 G1 stream MSM against the C++ Pippenger;
   4  the real-cycle mnt4_groth16 IVC chain on the card: setup, the base
      case, a warm step-2 prove, both verified, and the negative check
      (the old message against the newest proof must be rejected); every
      kernel instantiation must have launched on that path, K1 exactly
-     once per commitment MSM; CUDA-event device time of every launch of
-     the warm step;
+     once per commitment MSM, K4 once per commitment MSM, K2 never;
+     CUDA-event device time of every launch of the warm step, of the
+     whole finish (StreamMSMCtx._finish), and of the warm step's finishes
+     replayed through K4 and through finish_steps in turns;
   5  each kernel again on the inputs of its first launch in the warm step
-     (K1: the a-query or b_g2 MSM; K2: the first suffix-scan step),
-     exactly against its plain version, with CUDA-event times: these are
-     the numbers of the `kernels` line.  Runs after every chain of phases
+     (K1 and K4: the a-query or b_g2 MSM), exactly against its plain
+     version, with CUDA-event times, K4 beside finish_steps on the same
+     inputs: these are the numbers of the `kernels` line.  Runs after every chain of phases
      4 and 6, on that chain's inputs, and cannot be chosen alone;
   6  phases 4 and 5 for the real-cycle GM17 chain mnt4_gm17 and the
      mixed chains mnt4_mix_groth16_gm17 and mnt4_mix_gm17_groth16, each
      at full width; K1 exactly once per commitment MSM of either SNARK.
-Phase 1 always runs.  K3's `launches` sums its launches over the chains
-run (null when none ran).  Any failure exits non-zero without the final
+Phase 1 always runs.  K2's and K3's records come from phase 2; their
+`launches` sum their launches over the chains run (null when none ran).  Any failure exits non-zero without the final
 line.  Nothing here imports JAX or the JAX package.
 """
 
@@ -68,21 +75,24 @@ CHAINS = {4: ("mnt4_groth16",),
           6: ("mnt4_gm17", "mnt4_mix_groth16_gm17", "mnt4_mix_gm17_groth16")}
 
 # each port kernel and the Pallas call sites (pl.pallas_call lines) it
-# replaces; K2<1> also takes the row-layout EC32Ctx._add_pallas, which no
-# path of the JAX package calls
+# replaces: K4 took the finish's complete adds (sites 3-6) from K2, which
+# stays as the row-layout EC32Ctx._add_pallas (site 7), on no path
 REPLACES = {
     ("madd_accumulate", 1): "pcd_tpu/ops/ec32.py:721",
     ("madd_accumulate", 2): "pcd_tpu/ops/ec32.py:1319",
     ("madd_accumulate", 3): "pcd_tpu/ops/ec32.py:1319",
-    ("complete_add", 1): "pcd_tpu/ops/ec32.py:502, pcd_tpu/ops/ec32.py:401, "
-                         "pcd_tpu/ops/ec32.py:436",
-    ("complete_add", 2): "pcd_tpu/ops/ec32.py:1211, pcd_tpu/ops/ec32.py:1003",
-    ("complete_add", 3): "pcd_tpu/ops/ec32.py:1211, pcd_tpu/ops/ec32.py:1003",
+    ("bucket_finish", 1): "pcd_tpu/ops/ec32.py:502, pcd_tpu/ops/ec32.py:401",
+    ("bucket_finish", 2): "pcd_tpu/ops/ec32.py:1211, "
+                          "pcd_tpu/ops/ec32.py:1003",
+    ("bucket_finish", 3): "pcd_tpu/ops/ec32.py:1211, "
+                          "pcd_tpu/ops/ec32.py:1003",
+    ("complete_add", 1): "pcd_tpu/ops/ec32.py:436",
     ("madd", 1): "pcd_tpu/ops/ec32.py:620",
 }
 SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "complete_add": "pcd_tpu_torch/csrc/complete_add.cu",
-           "madd": "pcd_tpu_torch/csrc/madd.cu"}
+           "madd": "pcd_tpu_torch/csrc/madd.cu",
+           "bucket_finish": "pcd_tpu_torch/csrc/bucket_finish.cu"}
 
 
 def say(phase, msg):
@@ -187,9 +197,9 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
     """K1 and K2 against their plain versions, all four forms, with the
     edge cases: K1 on the 25 windows x 8192 lanes of a 298-bit-scalar MSM
     (T = 8, the help circuit's rounds) with zero loads and flagged rows,
-    K2 on the 25 x 8192 lanes of the finish's first scan with P = Q,
-    P = -Q and identities; K3 for the G1 forms (check_madd).  Returns
-    K3's `kernels` records."""
+    K2 on K1's 204800 outputs as pairs with P = Q, P = -Q and identities;
+    K3 for the G1 forms (check_madd); K4 on a real schedule
+    (check_finish).  Returns the `kernels` records of K2<1> and K3."""
     import numpy as np
     import torch
 
@@ -233,17 +243,104 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
         P = P.clone()
         P[3 * k:4 * k] = ec.identity((k,), dev)            # P = O
         got2 = ec.add(P, Q)
-        if not torch.equal(got2, ec.complete_add_plain(P, Q)):
+        sync(dev)
+        t0 = time.perf_counter()
+        want2 = ec.complete_add_plain(P, Q)
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got2, want2):
             raise AssertionError(f"K2 {form}: kernel != plain")
         # P = -Q must give the identity (Z = 0)
         if bool(got2[k:2 * k, 2].any()):
             raise AssertionError(f"K2 {form}: P + (-P) is not the identity")
         ms = device_ms(lambda: ec.add(P, Q), 10, dev)
-        say(2, f"K2 complete_add {form}: exact on {n} pairs; {ms:.3f} ms")
+        say(2, f"K2 complete_add {form}: exact on {n} pairs; {ms:.3f} ms, "
+               f"plain {plain_ms:.0f} ms")
         if which == "g1":
+            records.append(record("complete_add", form, 1, 0, ms, plain_ms,
+                                  3 * P.numel() * 4,
+                                  n * MULS_ADD * PRODUCTS[1] * 2))
             records.append(check_madd(ec, table, got.reshape(-1, 3, D, 10),
                                       rng, form))
+        check_finish(ec, cfg, which, rng, form, dev)
     return records
+
+
+def finish_work(ec, accs, bidx, runrem):
+    """K4's work on these inputs, the same for any implementation: per
+    window (used lanes - nonempty buckets) + 2 B complete adds, and the
+    accumulators read once and the window sums written once.  Returns
+    (adds, bytes, 32-bit multiply-adds)."""
+    nwin, L = runrem.shape
+    B = bidx.shape[1]
+    used = int((runrem > 0).sum())
+    nonempty = int((bidx != nwin * L).sum())
+    adds = used - nonempty + 2 * B * nwin
+    nbytes = (accs.numel() + nwin * ec.point_words) * 4
+    return adds, nbytes, adds * MULS_ADD * PRODUCTS[ec.d] * 2
+
+
+def check_finish(ec, cfg, which, rng, form, dev, n=1 << 16, c=12,
+                 lanes=8192):
+    """K4 on a real C++ schedule (c-bit windows, 8192 lanes) of n scalars
+    below 2^297: window 2 all zero digits (window 1's top two bits clear,
+    so no carry), window 3 every digit 5 (one bucket of n points, the run
+    of maxrun lanes), and rows 0 and 1 P and -P with the same scalar (they
+    share a bucket in every window).  K1 folds the lanes; K4 must equal its plain
+    version limb for limb and finish_steps as affine points, window by
+    window; both timed with CUDA events in turns (K4, steps, steps,
+    K4)."""
+    import torch
+
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
+
+    curve, gen = getattr(cfg, which), getattr(cfg, which + "_gen")
+    xs, ys, inf = raw_points(native, gen, [int(s) for s in rng.integers(
+        1, 1 << 62, n)], cfg.Fr.BITS)
+    sctx = StreamMSMCtx(curve, cfg.Fr.BITS, c, lanes)
+    table = sctx.table_from_limbs(xs, ys, inf, dev)
+    table[1] = table[0]
+    table[1, 1] = ec.f.from_plain(ec.f.neg(ec.f.to_plain(table[0, 1])))
+    mask = (1 << c) - 1
+    keep = ((1 << 297) - 1 - (3 << (2 * c - 2)) - (mask << 2 * c)
+            - (mask << 3 * c))
+    sc = [(int.from_bytes(rng.bytes(38), "little") & keep) | (5 << 3 * c)
+          for _ in range(n)]
+    sc[1] = sc[0]
+    sched = sctx.schedule_native(native.ints_to_limbs(sc))
+    perm, loads, bidx, runrem = sched.on(dev)
+    accs = ec.madd_accumulate(table, perm, loads)
+    got = ec.bucket_finish(accs, bidx, runrem)
+    sync(dev)
+    t0 = time.perf_counter()
+    want = ec.bucket_finish_plain(accs, bidx, runrem)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 {form}: kernel != plain")
+    steps = sctx.finish_steps(accs, bidx, runrem, sched.maxrun)
+    g, s = got.cpu().numpy(), steps.cpu().numpy()
+    for w in range(sctx.nwin):
+        if ec.decode_point(g[w]) != ec.decode_point(s[w]):
+            raise AssertionError(f"K4 {form}: window {w} != finish_steps")
+    if not ec.decode_point(g[2]).is_infinity():
+        raise AssertionError(f"K4 {form}: the all-zero window is not O")
+    bucket5 = int(sched.runrem[3, sched.bidx[3, 4] - 3 * sctx.L])
+    k4 = lambda: ec.bucket_finish(accs, bidx, runrem)  # noqa: E731
+    old = lambda: sctx.finish_steps(accs, bidx, runrem,  # noqa: E731
+                                    sched.maxrun)
+    t = {"k4": [], "steps": []}
+    for name in ("k4", "steps", "steps", "k4"):
+        t[name].append(device_ms(k4 if name == "k4" else old, 3, dev))
+    ms, ms_old = (sum(v) / 2 for v in t.values())
+    adds, nbytes, mads = finish_work(ec, accs, bidx, runrem)
+    bound = max(nbytes / HBM_BYTES_PER_S, mads / INT32_MAD_PER_S) * 1e3
+    say(2, f"K4 bucket_finish {form}: exact against plain and finish_steps "
+           f"on {sctx.nwin}x{sctx.L} lanes ({n} scalars, T={sched.T}, "
+           f"maxrun {sched.maxrun}, window 3's bucket {bucket5} lanes, "
+           f"{adds} adds); {ms:.3f} ms vs finish_steps {ms_old:.3f} ms, "
+           f"bound {bound:.3f} ms, plain {plain_ms:.0f} ms")
 
 
 def check_madd(ec, table, acc0, rng, form):
@@ -362,27 +459,54 @@ def phase_msm(dev="cuda", log_n=18):
 
 
 class LaunchProbe:
-    """While `on`, wraps the three kernel wrappers of ops/ec.py: the first
-    call per (kernel, curve) keeps its inputs (K3's accumulator, which it
-    updates in place, as a copy), and every call on the card gets CUDA
-    events around it on the caller's current stream (the MSM side stream
-    in the prover's background thread).  The wrappers' launch counters are
-    untouched; leaving the `with` restores the wrappers."""
+    """While `on`, wraps the four kernel wrappers of ops/ec.py and the
+    stream MSM's finish: the first call per (kernel, curve) keeps its
+    inputs (K3's accumulator, which it updates in place, as a copy), every
+    finish keeps its StreamMSMCtx and inputs, and every call on the card
+    gets CUDA events around it on the caller's current stream (the MSM
+    side stream in the prover's background thread).  The wrappers' launch
+    counters are untouched; leaving the `with` restores the wrappers."""
 
     WRAPPED = (("madd_accumulate", "madd_accumulate"),
-               ("complete_add", "add"), ("madd", "madd"))
+               ("complete_add", "add"), ("madd", "madd"),
+               ("bucket_finish", "bucket_finish"))
 
     def __init__(self):
         self.on = False
         self.first = {}      # (kernel, curve name) -> (ECCtx, args)
-        self.events = []     # ((kernel, curve name), start, end)
+        self.finishes = []   # (StreamMSMCtx, args) of every finish
+        self.firsts = []     # the first of them per curve
+        self.events = []     # ((kernel or "finish", curve name), start, end)
 
-    def __enter__(self):
+    def _timed(self, key, fn, *args):
         import torch
 
+        if args[1].device.type != "cuda":
+            return fn(*args)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args)
+        b.record()
+        self.events.append((key, a, b))
+        return out
+
+    def __enter__(self):
         from pcd_tpu_torch.ops.ec import ECCtx
+        from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
 
         self._orig = {attr: getattr(ECCtx, attr) for _, attr in self.WRAPPED}
+        self._finish = StreamMSMCtx._finish
+
+        def finish(sctx, *args):
+            if not self.on:
+                return self._finish(sctx, *args)
+            self.finishes.append((sctx, args))
+            if all(p[0].ec is not sctx.ec for p in self.firsts):
+                self.firsts.append((sctx, args))
+            return self._timed(("finish", sctx.ec.name), self._finish, sctx,
+                               *args)
+        StreamMSMCtx._finish = finish
 
         def wrap(kernel, fn):
             def probed(ctx, *args):
@@ -393,15 +517,7 @@ class LaunchProbe:
                     kept = ((args[0].clone(),) + args[1:] if kernel == "madd"
                             else args)
                     self.first[key] = (ctx, kept)
-                if args[0].device.type != "cuda":
-                    return fn(ctx, *args)
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = fn(ctx, *args)
-                b.record()
-                self.events.append((key, a, b))
-                return out
+                return self._timed(key, fn, ctx, *args)
             return probed
 
         for kernel, attr in self.WRAPPED:
@@ -410,9 +526,32 @@ class LaunchProbe:
 
     def __exit__(self, *exc):
         from pcd_tpu_torch.ops.ec import ECCtx
+        from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
 
         for attr, fn in self._orig.items():
             setattr(ECCtx, attr, fn)
+        StreamMSMCtx._finish = self._finish
+
+    def replay_finishes(self):
+        """The warm step's finishes again, each through K4 (the port's
+        `_finish`) and through finish_steps in turns (K4, steps, steps,
+        K4): {curve name: [K4 ms, finish_steps ms]} summed over the step,
+        one call each, CUDA events."""
+        out = {}
+        for sctx, (accs, bidx, runrem) in self.finishes:
+            top = max(1, int(runrem.max()))
+            maxrun = 1 << (top - 1).bit_length()
+            k4 = lambda: self._finish(sctx, accs, bidx, runrem)  # noqa
+            old = lambda: sctx.finish_steps(accs, bidx, runrem,  # noqa
+                                            maxrun)
+            got = [0.0, 0.0]
+            for i in (0, 1, 1, 0):
+                got[i] += device_ms(k4 if i == 0 else old, 1,
+                                    accs.device) / 2
+            tot = out.setdefault(sctx.ec.name, [0.0, 0.0])
+            tot[0] += got[0]
+            tot[1] += got[1]
+        return out
 
     def device_ms(self):
         """{(kernel, curve name): summed CUDA-event ms of its launches}."""
@@ -503,30 +642,47 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None):
     say(phase, "launches per warm step: " + json.dumps(
         {f"{k}[{f}]": v for (k, f), v in sorted(step2.items())}))
     dms = probe.device_ms()
+    kern = {key: v for key, v in dms.items() if key[0] != "finish"}
     say(phase, "kernel device ms per warm step (CUDA events): " + json.dumps(
-        {f"{k}[{f}]": round(v, 3) for (k, f), v in sorted(dms.items())})
-        + f"; all kernels {sum(dms.values()):.1f} ms of the "
+        {f"{k}[{f}]": round(v, 3) for (k, f), v in sorted(kern.items())})
+        + f"; all kernels {sum(kern.values()):.1f} ms of the "
           f"{secs['prove_step2_warm'] * 1e3:.0f} ms step")
+    if dev.type == "cuda":
+        fin = {f: v for (k, f), v in dms.items() if k == "finish"}
+        say(phase, "whole finish (StreamMSMCtx._finish) device ms per warm "
+                   "step: " + json.dumps({f: round(v, 3) for f, v in
+                                          sorted(fin.items())})
+            + f"; {sum(fin.values()):.3f} ms in all")
+        rep = probe.replay_finishes()
+        say(phase, "the warm step's finishes replayed, K4 vs finish_steps "
+                   "(ms, in turns): " + json.dumps(
+                       {f: [round(a, 3), round(b, 3)]
+                        for f, (a, b) in sorted(rep.items())})
+            + f"; {sum(a for a, _ in rep.values()):.3f} vs "
+              f"{sum(b for _, b in rep.values()):.3f} ms in all")
+    probe.finishes.clear()
     cyc = ic.cycle
     forms = [(c.name, grp, kind) for cfg, kind in zip((cyc.main, cyc.help),
                                                       kinds)
              for grp, c in (("g1", cfg.g1), ("g2", cfg.g2))]
-    missing = [f"{k}[{f}]" for k in ("madd_accumulate", "complete_add")
+    missing = [f"{k}[{f}]" for k in ("madd_accumulate", "bucket_finish")
                for f, _, _ in forms if counts.get((k, f), 0) <= 0]
     if missing:
         raise AssertionError("kernels not launched on the main path: "
                              + ", ".join(missing))
-    # every commitment MSM of both proves ran K1 once: none went to the
-    # host
+    # every commitment MSM of both proves ran K1 and K4 once: none went to
+    # the host; K2 no longer runs on the path
     for f, grp, kind in forms:
         want = K1_PER_PROVE[kind][grp]
-        got = (step2.get(("madd_accumulate", f), 0),
-               counts.get(("madd_accumulate", f), 0))
-        if got != (want, 2 * want):
-            raise AssertionError(
-                f"madd_accumulate[{f}]: {got[0]} launches in the warm step "
-                f"and {got[1]} in both proves, expected {want} and "
-                f"{2 * want}")
+        for k in ("madd_accumulate", "bucket_finish"):
+            got = (step2.get((k, f), 0), counts.get((k, f), 0))
+            if got != (want, 2 * want):
+                raise AssertionError(
+                    f"{k}[{f}]: {got[0]} launches in the warm step and "
+                    f"{got[1]} in both proves, expected {want} and "
+                    f"{2 * want}")
+        if counts.get(("complete_add", f), 0):
+            raise AssertionError(f"complete_add[{f}] launched on the path")
     return counts, probe
 
 
@@ -557,6 +713,13 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
             shape = (f"{nwin}x{L} lanes, T={T}, {madds} mixed adds, "
                      f"{table.shape[0]}-row table")
             reps = 5
+        elif kernel == "bucket_finish":
+            accs, bidx, runrem = args
+            adds, nbytes, mads = finish_work(ec, accs, bidx, runrem)
+            nwin, L = runrem.shape
+            shape = (f"{nwin}x{L} lanes, {bidx.shape[1]} buckets, "
+                     f"{adds} adds")
+            reps = 5
         elif kernel == "madd":
             acc, q, sign, active = args
             n = acc.shape[0]
@@ -586,6 +749,15 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
             raise AssertionError(f"{kernel}[{form}] on the warm step's "
                                  f"inputs: kernel != plain")
         ms = device_ms(lambda: kern(*own), reps, dev)
+        if kernel == "bucket_finish":            # the K2-step yardstick
+            sctx, _ = next(p for p in probe.firsts if p[0].ec is ec)
+            top = max(1, int(runrem.max()))
+            old = [device_ms(lambda: sctx.finish_steps(
+                accs, bidx, runrem, 1 << (top - 1).bit_length()), 3, dev)
+                for _ in range(2)]
+            ms = (ms + device_ms(lambda: kern(*own), reps, dev)) / 2
+            shape += (f"; finish_steps on the same inputs "
+                      f"{sum(old) / 2:.3f} ms")
         rec = record(kernel, form, D, err, ms, plain_ms, nbytes, mads)
         rec["name"] += tag
         rec["launches"] = counts.get((kernel, form), 0)
@@ -632,9 +804,10 @@ def main(argv):
             phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
             say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
                     f"first-launch kernel checks")
-    for rec in k3:                       # K3's launches on the chains run
-        form = rec["name"][len("madd["):-1]
-        rec["launches"] = (sum(c.get(("madd", form), 0) for c in chain_counts)
+    for rec in k3:                 # K2's, K3's launches on the chains run
+        kernel, form = rec["name"][:-1].split("[")
+        rec["launches"] = (sum(c.get((kernel, form), 0)
+                               for c in chain_counts)
                            if chain_counts else None)
     say("all", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)

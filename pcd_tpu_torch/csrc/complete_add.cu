@@ -1,14 +1,12 @@
 // K2: elementwise complete projective addition, complete_add<D>.
 //
-// Replaces the four Pallas complete-add kernels of the stream-MSM finish:
-// EC32Ctx.add_cols and EC32ExtCtx.add_cols (pcd_tpu/ops/ec32.py:457-513,
-// 1152-1222; the suffix scans of msm_stream._finish_dev) and
-// EC32Ctx.add / EC32ExtCtx.add through _add_pallas_T (ec32.py:343-409,
-// 915-1012; its halving reduce), and the row-layout EC32Ctx._add_pallas
-// (ec32.py:411-444), which no path of the JAX package calls.  Those five
-// differ only in the TPU layout of their blocks; the port keeps points
-// row-major, so one kernel serves them all.  One thread computes out[i] = P[i] + Q[i] with RCB15
-// alg. 1 for any a.
+// Replaces the row-layout EC32Ctx._add_pallas (pcd_tpu/ops/ec32.py:
+// 411-444), which no path of the JAX package calls: the port keeps points
+// row-major, and this is that function.  The stream-MSM finish's complete
+// adds (ec32.py:343-409, 457-513, 915-1012, 1152-1222) are K4's
+// (csrc/bucket_finish.cu); the finish's old K2-step sequence stays as its
+// yardstick (StreamMSMCtx.finish_steps), so no path runs K2.  One thread
+// computes out[i] = P[i] + Q[i] with RCB15 alg. 1 for any a.
 //
 // Bound: operations.  18 field products per add against 2 x 120 * D bytes
 // in and 120 * D out.

@@ -15,7 +15,7 @@ struct Pt {
 };
 
 template <int D>
-__device__ __forceinline__ void pt_identity(Pt<D>& P, const FieldConsts& k) {
+PCD_FN void pt_identity(Pt<D>& P, const FieldConsts& k) {
 #pragma unroll
   for (int i = 0; i < D; ++i)
 #pragma unroll
@@ -26,8 +26,9 @@ __device__ __forceinline__ void pt_identity(Pt<D>& P, const FieldConsts& k) {
     }
 }
 
+#if defined(__CUDACC__)
 template <int D>
-__device__ __forceinline__ void pt_load(Pt<D>& P, const uint32_t* src) {
+PCD_FN void pt_load(Pt<D>& P, const uint32_t* src) {
   const uint2* s = reinterpret_cast<const uint2*>(src);
   uint32_t buf[3 * D * NL];
 #pragma unroll
@@ -47,7 +48,7 @@ __device__ __forceinline__ void pt_load(Pt<D>& P, const uint32_t* src) {
 }
 
 template <int D>
-__device__ __forceinline__ void pt_store(uint32_t* dst, const Pt<D>& P) {
+PCD_FN void pt_store(uint32_t* dst, const Pt<D>& P) {
   uint2* d = reinterpret_cast<uint2*>(dst);
   uint32_t buf[3 * D * NL];
 #pragma unroll
@@ -62,11 +63,12 @@ __device__ __forceinline__ void pt_store(uint32_t* dst, const Pt<D>& P) {
   for (int q = 0; q < 3 * D * NL / 2; ++q)
     d[q] = make_uint2(buf[2 * q], buf[2 * q + 1]);
 }
+#endif
 
 // Shared tail of both formulas, from t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2,
 // t3 = X1 Y2 + X2 Y1, t4 = X1 Z2 + X2 Z1, t5 = Y1 Z2 + Y2 Z1.
 template <int D>
-__device__ __forceinline__ void rcb_tail(Pt<D>& R, const Fe<D>& t0,
+PCD_FN void rcb_tail(Pt<D>& R, const Fe<D>& t0,
                                          const Fe<D>& t1, const Fe<D>& t2,
                                          const Fe<D>& t3, const Fe<D>& t4,
                                          const Fe<D>& t5,
@@ -103,7 +105,7 @@ __device__ __forceinline__ void rcb_tail(Pt<D>& R, const Fe<D>& t0,
 
 // R = P + Q, complete (any P, Q including the identity and P = +-Q)
 template <int D>
-__device__ __forceinline__ void rcb_add(Pt<D>& R, const Pt<D>& P,
+PCD_FN void rcb_add(Pt<D>& R, const Pt<D>& P,
                                         const Pt<D>& Q, const FieldConsts& k) {
   Fe<D> t0, t1, t2, t3, t4, t5, u, v;
   fe_mul(t0, P.X, Q.X, k);
@@ -130,7 +132,7 @@ __device__ __forceinline__ void rcb_add(Pt<D>& R, const Pt<D>& P,
 // R = P + (x2, y2), the affine point finite (complete for P = identity and
 // P = +-(x2, y2))
 template <int D>
-__device__ __forceinline__ void rcb_madd(Pt<D>& R, const Pt<D>& P,
+PCD_FN void rcb_madd(Pt<D>& R, const Pt<D>& P,
                                          const Fe<D>& x2, const Fe<D>& y2,
                                          const FieldConsts& k) {
   Fe<D> t0, t1, t3, t4, t5, u, v;

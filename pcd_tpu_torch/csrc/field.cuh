@@ -6,19 +6,34 @@
 // helpers of Fp32Ctx (pcd_tpu/ops/fp32.py:228-393: 8-bit limbs in f32,
 // bf16 Toeplitz reductions on the MXU) and _ExtOpsT
 // (pcd_tpu/ops/ec32.py:747-826).  A GPU multiplies 32 x 32 -> 64 bits in
-// its integer units, so a prime-field product is one CIOS pass (210
-// partial products).  An extension product forms its cross products by
-// Karatsuba at the wide (640-bit) level, scales the wrapped ones by nr,
-// and reduces once per component, as _ExtOpsT.mul does.  Every
-// result is fully reduced, so the plain torch versions
-// (pcd_tpu_torch/ops/field.py) agree limb for limb.
+// its integer units, so a prime-field product is one Montgomery pass (210
+// partial products).  Every result is fully reduced, so the plain torch
+// versions (pcd_tpu_torch/ops/field.py) agree limb for limb.
+//
+// Products run as PTX carry chains (csrc/ptx.cuh): mad.lo.cc / madc.hi.cc
+// add the low and high words of x_j * y into an accumulator and carry in
+// the flag.  The partial products of one row split by the parity of j:
+// the even limbs' words tile one accumulator E (x_0 y at words 0-1, x_2 y
+// at 2-3, ...), the odd limbs' another, O, one word up, so each row is
+// two independent chains (instruction-level parallelism for one thread)
+// and neither has to wait for the other's carries; ptxas fuses each
+// lo/hi pair into one 64-bit multiply-add with carry.  The merged value is
+// E + 2^32 O.  The Montgomery factor of word i needs only that word of
+// the merged value and the carry into it, so the product and reduction
+// rows interleave.  With p < 2^300 every chain ends in a word that no
+// earlier row wrote or that holds at most a few carries, so no carry
+// ripples further.
+//
+// An extension product sums each component's D products in one such pass
+// and reduces it once, as _ExtOpsT.mul does at the wide level.
 //
 // The modulus, the Montgomery constants and the curve constants arrive
 // as one FieldConsts kernel parameter (pcd_tpu_torch/ops/ec.py packs it).
 #pragma once
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+#include "ptx.cuh"
 
 #define NL 10
 
@@ -40,287 +55,196 @@ struct Fe {
 };
 
 // r = a - p if a >= p else a   (a < 2p)
-__device__ __forceinline__ void fp_reduce_once(uint32_t r[NL],
-                                               const uint32_t a[NL],
-                                               const uint32_t p[NL]) {
+PCD_FN void fp_reduce_once(uint32_t r[NL], const uint32_t a[NL],
+                           const uint32_t p[NL]) {
   uint32_t t[NL];
-  uint32_t borrow = 0;
+  t[0] = sub_cc(a[0], p[0]);
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    u64 d = (u64)a[i] - p[i] - borrow;
-    t[i] = (uint32_t)d;
-    borrow = (uint32_t)(d >> 63);
-  }
+  for (int i = 1; i < NL; ++i) t[i] = subc_cc(a[i], p[i]);
+  const uint32_t keep = subc(0, 0);  // all ones where a < p
 #pragma unroll
-  for (int i = 0; i < NL; ++i) r[i] = borrow ? a[i] : t[i];
+  for (int i = 0; i < NL; ++i) r[i] = (a[i] & keep) | (t[i] & ~keep);
 }
 
-__device__ __forceinline__ void fp_add(uint32_t r[NL], const uint32_t a[NL],
-                                       const uint32_t b[NL],
-                                       const uint32_t p[NL]) {
+PCD_FN void fp_add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
+                   const uint32_t p[NL]) {
   uint32_t s[NL];
-  uint32_t c = 0;
+  s[0] = add_cc(a[0], b[0]);
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    u64 t = (u64)a[i] + b[i] + c;
-    s[i] = (uint32_t)t;
-    c = (uint32_t)(t >> 32);
-  }
+  for (int i = 1; i < NL; ++i) s[i] = addc_cc(a[i], b[i]);
   fp_reduce_once(r, s, p);
 }
 
-__device__ __forceinline__ void fp_sub(uint32_t r[NL], const uint32_t a[NL],
-                                       const uint32_t b[NL],
-                                       const uint32_t p[NL]) {
+PCD_FN void fp_sub(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
+                   const uint32_t p[NL]) {
   uint32_t s[NL];
-  uint32_t borrow = 0;
+  s[0] = sub_cc(a[0], b[0]);
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    u64 d = (u64)a[i] - b[i] - borrow;
-    s[i] = (uint32_t)d;
-    borrow = (uint32_t)(d >> 63);
+  for (int i = 1; i < NL; ++i) s[i] = subc_cc(a[i], b[i]);
+  const uint32_t m = subc(0, 0);  // all ones where a < b: add p back
+  r[0] = add_cc(s[0], p[0] & m);
+#pragma unroll
+  for (int i = 1; i < NL; ++i) r[i] = addc_cc(s[i], p[i] & m);
+}
+
+// acc[o .. o+NL-1] = the words of x[s] y, x[s+2] y, ..., x[s+NL-2] y (s = 0:
+// the even limbs; s = 1: the odd ones), acc[o+NL] = 0.  Products of
+// distinct limbs land in distinct words: no carries.
+PCD_FN void mul_row(uint32_t* acc, int o, const uint32_t* x, int s,
+                    uint32_t y) {
+#pragma unroll
+  for (int q = 0; q < NL / 2; ++q) {
+    acc[o + 2 * q] = mul_lo(x[s + 2 * q], y);
+    acc[o + 2 * q + 1] = mul_hi(x[s + 2 * q], y);
   }
-  // a < b: add p back (mod 2^320)
+  acc[o + NL] = 0;
+}
+
+// acc[o .. o+NL-1] += the same words in one carry chain; its carry lands
+// in acc[o+NL], assigned where no row wrote that word yet (fresh), added
+// where it holds a previous chain's carry.
+PCD_FN void mac_row(uint32_t* acc, int o, const uint32_t* x, int s,
+                    uint32_t y, bool fresh) {
+  acc[o] = mad_lo_cc(x[s], y, acc[o]);
+  acc[o + 1] = madc_hi_cc(x[s], y, acc[o + 1]);
+#pragma unroll
+  for (int q = 1; q < NL / 2; ++q) {
+    acc[o + 2 * q] = madc_lo_cc(x[s + 2 * q], y, acc[o + 2 * q]);
+    acc[o + 2 * q + 1] = madc_hi_cc(x[s + 2 * q], y, acc[o + 2 * q + 1]);
+  }
+  acc[o + NL] = fresh ? addc(0, 0) : addc(acc[o + NL], 0);
+}
+
+// Montgomery product (x_0 y_0 + ... + x_{K-1} y_{K-1}) / R mod p for a sum
+// below (R / p - 1) p: product and reduction rows interleaved (FIOS), each
+// row i adding x_j * y_j[i] for every j before its reduction row.  The
+// merged value is sum_w (E[w] + O[w-1]) 2^(32 w), and c carries into word
+// i once the words below it are zero.
+template <int K>
+PCD_FN void fp_mul_sum(uint32_t r[NL], const uint32_t x[K][NL],
+                       const uint32_t y[K][NL], const FieldConsts& k) {
+  uint32_t E[2 * NL], O[2 * NL];
   uint32_t c = 0;
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
-    u64 t = (u64)s[i] + (borrow ? p[i] : 0u) + c;
-    r[i] = (uint32_t)t;
-    c = (uint32_t)(t >> 32);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (i == 0 && j == 0) {
+        mul_row(E, 0, x[0], 0, y[0][0]);
+        mul_row(O, 0, x[0], 1, y[0][0]);
+      } else {
+        mac_row(E, i, x[j], 0, y[j][i], j == 0);
+        mac_row(O, i, x[j], 1, y[j][i], j == 0);
+      }
+    }
+    const uint32_t below = (i ? O[i - 1] : 0u) + c;
+    const uint32_t m = (E[i] + below) * k.n0;
+    mac_row(E, i, k.p, 0, m, false);
+    mac_row(O, i, k.p, 1, m, false);
+    c = (uint32_t)(((u64)E[i] + (i ? O[i - 1] : 0u) + c) >> 32);
   }
+  // (sum + m p) / R < 2p: words NL .. 2NL-1 of the merged value, plus c
+  uint32_t s[NL];
+  s[0] = add_cc(E[NL], O[NL - 1]);
+#pragma unroll
+  for (int q = 1; q < NL; ++q) s[q] = addc_cc(E[NL + q], O[NL + q - 1]);
+  s[0] = add_cc(s[0], c);
+#pragma unroll
+  for (int q = 1; q < NL; ++q) s[q] = addc_cc(s[q], 0);
+  fp_reduce_once(r, s, k.p);
 }
 
-// CIOS Montgomery product a*b/R mod p
-__device__ __forceinline__ void fp_mul(uint32_t r[NL], const uint32_t a[NL],
-                                       const uint32_t b[NL],
-                                       const FieldConsts& k) {
-  uint32_t t[NL + 2];
-#pragma unroll
-  for (int i = 0; i < NL + 2; ++i) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      u64 s = (u64)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    u64 s = (u64)t[NL] + c;
-    t[NL] = (uint32_t)s;
-    t[NL + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * k.n0;
-    s = (u64)m * k.p[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NL; ++j) {
-      s = (u64)m * k.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (u64)t[NL] + c;
-    t[NL - 1] = (uint32_t)s;
-    t[NL] = t[NL + 1] + (uint32_t)(s >> 32);
-  }
-  fp_reduce_once(r, t, k.p);  // t < 2p < 2^320, so t[NL] == 0
+// Montgomery product a*b/R mod p
+PCD_FN void fp_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
+                   const FieldConsts& k) {
+  fp_mul_sum<1>(r, reinterpret_cast<const uint32_t(*)[NL]>(a),
+                reinterpret_cast<const uint32_t(*)[NL]>(b), k);
 }
 
-// acc (2NL+1 words) += x * y
-__device__ __forceinline__ void wide_mac(uint32_t acc[2 * NL + 1],
-                                         const uint32_t x[NL],
-                                         const uint32_t y[NL]) {
+// r = s a for s < 2^16 (a < p < 2^300, so s a < 2^316 fits)
+PCD_FN void fp_scale_small(uint32_t r[NL], const uint32_t a[NL], uint32_t s) {
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    u64 c = 0;
+  for (int l = 0; l < NL; ++l) r[l] = mul_lo(a[l], s);
+  r[1] = mad_hi_cc(a[0], s, r[1]);
 #pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      u64 s = (u64)x[j] * y[i] + acc[i + j] + c;
-      acc[i + j] = (uint32_t)s;
-      c = s >> 32;
-    }
-#pragma unroll
-    for (int j = i + NL; j < 2 * NL + 1; ++j) {
-      u64 s = (u64)acc[j] + c;
-      acc[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-  }
-}
-
-// r = acc / R mod p for acc < p * R (word-by-word reduction)
-__device__ __forceinline__ void wide_redc(uint32_t r[NL],
-                                          uint32_t acc[2 * NL + 1],
-                                          const FieldConsts& k) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    uint32_t m = acc[i] * k.n0;
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      u64 s = (u64)m * k.p[j] + acc[i + j] + c;
-      acc[i + j] = (uint32_t)s;
-      c = s >> 32;
-    }
-#pragma unroll
-    for (int j = i + NL; j < 2 * NL + 1; ++j) {
-      u64 s = (u64)acc[j] + c;
-      acc[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-  }
-  fp_reduce_once(r, acc + NL, k.p);  // < 2p: acc[2NL] == 0
+  for (int l = 1; l < NL - 1; ++l) r[l + 1] = madc_hi_cc(a[l], s, r[l + 1]);
 }
 
 template <int D>
-__device__ __forceinline__ void fe_add(Fe<D>& r, const Fe<D>& a,
-                                       const Fe<D>& b, const FieldConsts& k) {
+PCD_FN void fe_add(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
+                   const FieldConsts& k) {
 #pragma unroll
   for (int i = 0; i < D; ++i) fp_add(r.c[i], a.c[i], b.c[i], k.p);
 }
 
 template <int D>
-__device__ __forceinline__ void fe_sub(Fe<D>& r, const Fe<D>& a,
-                                       const Fe<D>& b, const FieldConsts& k) {
+PCD_FN void fe_sub(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
+                   const FieldConsts& k) {
 #pragma unroll
   for (int i = 0; i < D; ++i) fp_sub(r.c[i], a.c[i], b.c[i], k.p);
 }
 
 template <int D>
-__device__ __forceinline__ void fe_neg(Fe<D>& r, const Fe<D>& a,
-                                       const FieldConsts& k) {
+PCD_FN void fe_neg(Fe<D>& r, const Fe<D>& a, const FieldConsts& k) {
   const uint32_t zero[NL] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < D; ++i) fp_sub(r.c[i], zero, a.c[i], k.p);
 }
 
-// w (2NL+1 words) = x * y
-__device__ __forceinline__ void wide_mul(uint32_t w[2 * NL + 1],
-                                         const uint32_t x[NL],
-                                         const uint32_t y[NL]) {
-#pragma unroll
-  for (int i = 0; i < 2 * NL + 1; ++i) w[i] = 0;
-  wide_mac(w, x, y);
-}
-
-// w = x * y for x = a_i + a_j, y = b_i + b_j (unreduced sums < 2p < 2^301)
-__device__ __forceinline__ void wide_mul_sums(uint32_t w[2 * NL + 1],
-                                              const uint32_t ai[NL],
-                                              const uint32_t aj[NL],
-                                              const uint32_t bi[NL],
-                                              const uint32_t bj[NL]) {
-  uint32_t x[NL], y[NL];
-  uint32_t cx = 0, cy = 0;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    u64 s = (u64)ai[l] + aj[l] + cx;
-    x[l] = (uint32_t)s;
-    cx = (uint32_t)(s >> 32);
-    s = (u64)bi[l] + bj[l] + cy;
-    y[l] = (uint32_t)s;
-    cy = (uint32_t)(s >> 32);
-  }
-  wide_mul(w, x, y);
-}
-
-// w -= x (2NL+1 words; the caller keeps w >= x)
-__device__ __forceinline__ void wide_sub(uint32_t w[2 * NL + 1],
-                                         const uint32_t x[2 * NL + 1]) {
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < 2 * NL + 1; ++i) {
-    u64 d = (u64)w[i] - x[i] - borrow;
-    w[i] = (uint32_t)d;
-    borrow = (uint32_t)(d >> 63);
-  }
-}
-
-// w += x (2NL+1 words; the sum stays below 2^(32 (2NL+1)))
-__device__ __forceinline__ void wide_add(uint32_t w[2 * NL + 1],
-                                         const uint32_t x[2 * NL + 1]) {
-  uint32_t c = 0;
-#pragma unroll
-  for (int i = 0; i < 2 * NL + 1; ++i) {
-    u64 t = (u64)w[i] + x[i] + c;
-    w[i] = (uint32_t)t;
-    c = (uint32_t)(t >> 32);
-  }
-}
-
-// w += s * x (2NL+1 words, s < 2^32; x < 2^640 in its first 2NL words)
-__device__ __forceinline__ void wide_add_scaled(uint32_t w[2 * NL + 1],
-                                                const uint32_t x[2 * NL + 1],
-                                                uint32_t s) {
-  u64 c = 0;
-#pragma unroll
-  for (int i = 0; i < 2 * NL; ++i) {
-    u64 t = (u64)x[i] * s + w[i] + c;
-    w[i] = (uint32_t)t;
-    c = t >> 32;
-  }
-  w[2 * NL] += (uint32_t)c;
-}
-
-// Fp^D product with Karatsuba cross products, as _ExtOpsT.mul:
-// v_i = a_i b_i, and a_i b_j + a_j b_i = (a_i + a_j)(b_i + b_j) - v_i - v_j
-// (never negative, so the wide words stay unsigned).  Each component
-// c_m = sum_{i+j = m mod D} a_i b_j (wrapped terms * nr) is below
-// (1 + 2 nr) p^2 < p R and is reduced once: D = 2 takes 3 wide products,
-// D = 3 takes 6.  Out of line: inlining the D = 3 body at the 17-18 call
-// sites of one EC add would multiply code size and build time.
+// Fp^D product by schoolbook with one reduction per component, as
+// _ExtOpsT.mul sums at the wide level: c_m = sum_{i+j = m mod D} a_i b_j,
+// a wrapped term (i + j >= D) with a_i scaled by nr first.  Each component
+// is one fp_mul_sum of D products, below (1 + 2 nr) p^2 < (R/p - 1) p^2.
+// The components are written as they finish, so r must not alias a or b
+// (no caller does).  Out of line: inlining the D = 3 body at the 17-18
+// call sites of one EC add would multiply code size and build time; its
+// operands live in the caller's local memory.
 template <int D>
-__device__ __noinline__ void ext_mul(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
-                                     const FieldConsts& k) {
-  uint32_t v[D][2 * NL + 1];
-  uint32_t acc[2 * NL + 1];
+PCD_NOINLINE void ext_mul(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
+                          const FieldConsts& k) {
+  uint32_t s[D][NL];                  // s[i] = nr a_i (i >= 1)
 #pragma unroll
-  for (int i = 0; i < D; ++i) wide_mul(v[i], a.c[i], b.c[i]);
-  Fe<D> out;
-  if constexpr (D == 2) {
-    // c0 = v0 + nr v1;  c1 = (a0 + a1)(b0 + b1) - v0 - v1
-    wide_mul_sums(acc, a.c[0], a.c[1], b.c[0], b.c[1]);
-    wide_sub(acc, v[0]);
-    wide_sub(acc, v[1]);
-    wide_redc(out.c[1], acc, k);
-    wide_add_scaled(v[0], v[1], k.nr);
-    wide_redc(out.c[0], v[0], k);
-  } else {
-    // c0 = v0 + nr (a1 b2 + a2 b1);  c1 = a0 b1 + a1 b0 + nr v2;
-    // c2 = a0 b2 + a2 b0 + v1
-    uint32_t x[2 * NL + 1];
-    wide_mul_sums(x, a.c[1], a.c[2], b.c[1], b.c[2]);
-    wide_sub(x, v[1]);
-    wide_sub(x, v[2]);
+  for (int i = 1; i < D; ++i) fp_scale_small(s[i], a.c[i], k.nr);
 #pragma unroll
-    for (int i = 0; i < 2 * NL + 1; ++i) acc[i] = v[0][i];
-    wide_add_scaled(acc, x, k.nr);
-    wide_redc(out.c[0], acc, k);
-    wide_mul_sums(acc, a.c[0], a.c[1], b.c[0], b.c[1]);
-    wide_sub(acc, v[0]);
-    wide_sub(acc, v[1]);
-    wide_add_scaled(acc, v[2], k.nr);
-    wide_redc(out.c[1], acc, k);
-    wide_mul_sums(acc, a.c[0], a.c[2], b.c[0], b.c[2]);
-    wide_sub(acc, v[0]);
-    wide_sub(acc, v[2]);
-    wide_add(acc, v[1]);
-    wide_redc(out.c[2], acc, k);
+  for (int m = 0; m < D; ++m) {
+    uint32_t x[D][NL], y[D][NL];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const int j = (m - i + D) % D;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        x[i][l] = i + j >= D ? s[i][l] : a.c[i][l];
+        y[i][l] = b.c[j][l];
+      }
+    }
+    fp_mul_sum<D>(r.c[m], x, y, k);
   }
-  r = out;
 }
+
+#ifdef PCD_FP_MUL_NOINLINE
+// fp_mul out of line, its operands in local memory (kernel_ab.py --sweep)
+PCD_NOINLINE void fp_mul_call(Fe<1>& r, const Fe<1>& a, const Fe<1>& b,
+                              const FieldConsts& k) {
+  fp_mul(r.c[0], a.c[0], b.c[0], k);
+}
+#endif
 
 template <int D>
-__device__ __forceinline__ void fe_mul(Fe<D>& r, const Fe<D>& a,
-                                       const Fe<D>& b, const FieldConsts& k) {
+PCD_FN void fe_mul(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
+                   const FieldConsts& k) {
   if constexpr (D == 1) {
+#ifdef PCD_FP_MUL_NOINLINE
+    fp_mul_call(r, a, b, k);
+#else
     fp_mul(r.c[0], a.c[0], b.c[0], k);
+#endif
   } else {
     ext_mul<D>(r, a, b, k);
   }
 }
 
 template <int D>
-__device__ __forceinline__ void fe_load_const(Fe<D>& r,
-                                              const uint32_t src[3][NL]) {
+PCD_FN void fe_load_const(Fe<D>& r, const uint32_t src[3][NL]) {
 #pragma unroll
   for (int i = 0; i < D; ++i)
 #pragma unroll

@@ -14,12 +14,30 @@
 //
 // Bound: operations.  A mixed add is 17 field products (D = 1: 17 x 210
 // 32x32-bit partial products) against 80 * D gathered bytes, so the
-// kernel is integer-multiply bound; the accumulator stays in registers
-// (spilling at D = 3) across all rounds and leaves once.
+// kernel is integer-multiply bound.  The field core runs its products as
+// carry chains (csrc/field.cuh); the accumulator stays in registers at
+// D = 1 across all rounds and leaves once.  At D = 2, 3 the operands of
+// the out-of-line Fp^D product live in the thread's local memory (L1),
+// and the product keeps its own values in registers.
 #include "ec.cuh"
 
+// Minimum resident blocks of 128 threads per SM, per D.  An SM's
+// registers come in four quarters, each holding whole warps, so only caps
+// of 255, 168 and 128 registers (2, 3 or 4 blocks) change occupancy;
+// kernel_ab.py --sweep measures them.
+#ifndef K1_MINB1
+#define K1_MINB1 3
+#endif
+#ifndef K1_MINB2
+#define K1_MINB2 3
+#endif
+#ifndef K1_MINB3
+#define K1_MINB3 1
+#endif
+#define K1_MINB(D) ((D) == 1 ? K1_MINB1 : (D) == 2 ? K1_MINB2 : K1_MINB3)
+
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, K1_MINB(D))
 madd_accumulate_kernel(const uint32_t* __restrict__ table,
                        const uint32_t* __restrict__ perm,
                        const int32_t* __restrict__ loads,

@@ -8,7 +8,7 @@ d = 1 for G1, 2 (MNT4 Fq2) or 3 (MNT6 Fq3) for G2.  An MSM table row is
 infinity, which the mixed-add kernel skips (the reference's pad-limb flag,
 ec32.py:200-208).  The identity is (0 : 1 : 0).
 
-Three kernels, each behind a wrapper that launches the CUDA kernel for a
+Four kernels, each behind a wrapper that launches the CUDA kernel for a
 CUDA tensor, runs the plain torch version beside it for a CPU tensor, and
 raises for anything else:
 
@@ -16,10 +16,14 @@ raises for anything else:
                    (replaces ec32.py:632-732 and 1224-1330 and the gather
                    at msm_stream.py:261-277);
   complete_add     K2, csrc/complete_add.cu: elementwise complete add
-                   (replaces ec32.py:343-444, 457-513, 915-1012,
-                   1152-1222);
+                   (replaces ec32.py:411-444; the finish's yardstick,
+                   StreamMSMCtx.finish_steps, still runs on it);
   madd             K3, csrc/madd.cu: elementwise masked mixed add, in
-                   place, G1 (replaces ec32.py:527-630).
+                   place, G1 (replaces ec32.py:527-630);
+  bucket_finish    K4, csrc/bucket_finish.cu: the stream-MSM finish, lane
+                   accumulators to window sums in one launch (replaces
+                   ec32.py:343-409, 457-513, 915-1012, 1152-1222 with the
+                   finish glue of msm_stream.py:281-340).
 
 Both formulas are RCB15 (alg. 1 any-a complete add, and its Z2 = 1 mixed
 form) with the operation order of ec32._rcb_add / _rcb_maddT_ns, and the
@@ -258,6 +262,96 @@ class ECCtx:
                                active != 0)
         return self._join(*out).reshape(acc.shape)
 
+    # K4's block: one thread per bucket, at most this many buckets
+    FINISH_BLOCK = 128
+
+    @staticmethod
+    def _take(P, idx):
+        return tuple(c[..., idx] for c in P)
+
+    @staticmethod
+    def _put(P, idx, V):
+        for c, v in zip(P, V):
+            c[..., idx] = v
+
+    def _add_at(self, V, i, s):
+        """V[i] = V[i] + V[i + s] for the index tensor i (one level of K4,
+        every pair read before any is written)."""
+        self._put(V, i, self._rcb_add(self._take(V, i),
+                                      self._take(V, i + s)))
+
+    def _scan(self, V, n):
+        """Inclusive suffix scan within each group of n consecutive points,
+        K4's Hillis-Steele levels: V_t += V_{t+s} for t + s < n."""
+        t = torch.arange(V[0].shape[-1], device=V[0].device) % n
+        s = 1
+        while s < n:
+            self._add_at(V, torch.nonzero(t + s < n).flatten(), s)
+            s *= 2
+
+    def _tree(self, V, n, off):
+        """Pairwise sum of the points off..n-1 of each group of n into its
+        point off, K4's tree levels: with u = t - off, V_u += V_{u+s} for
+        u % 2s == 0 and u + s < n - off."""
+        u = torch.arange(V[0].shape[-1], device=V[0].device) % n - off
+        s = 1
+        while s < n - off:
+            self._add_at(V, torch.nonzero(
+                (u >= 0) & (u % (2 * s) == 0) & (u + s < n - off)).flatten(),
+                s)
+            s *= 2
+
+    def bucket_finish_plain(self, accs, bidx, runrem):
+        """Plain version of K4 (see bucket_finish): the same adds in the
+        same order, each level one batched plain add."""
+        nwin, L = accs.shape[:2]
+        B = bidx.shape[1]
+        dev = accs.device
+        U = self._split(accs.reshape(-1, 3, self.d, NLIMB))
+        rr = runrem.reshape(-1)
+        # (1) each bucket's run of lanes, pairwise into its first lane:
+        # rl = a lane's position in its run (the last run start at or
+        # before it; unused lanes have rr = 0 and never add)
+        heads = bidx.reshape(-1).long()
+        heads = heads[heads < nwin * L]
+        first = torch.zeros(nwin * L, dtype=torch.long, device=dev)
+        first[heads] = heads
+        rl = torch.arange(nwin * L, device=dev) - torch.cummax(first, 0)[0]
+        top = int(rr.max()) if rr.numel() else 0
+        s = 1
+        while s < top:
+            self._add_at(U, torch.nonzero((rl % (2 * s) == 0) & (rr > s))
+                         .flatten(), s)
+            s *= 2
+        # (2) per block of nb buckets: suffix scan C_t, then
+        # W = sum_{t >= 1} C_t = sum_t t S_t, and S = C_0
+        ident = self._split(self.identity((1,), dev))
+        V = self._take(tuple(torch.cat([u, e], dim=-1)
+                             for u, e in zip(U, ident)),
+                       bidx.reshape(-1).long())
+        nb = min(B, self.FINISH_BLOCK)
+        nblk = B // nb
+        self._scan(V, nb)
+        self._tree(V, nb, 1)
+        pos = torch.arange(nwin * B, device=dev) % nb
+        S = self._take(V, torch.nonzero(pos == 0).flatten())
+        W = self._take(V, torch.nonzero(pos == 1).flatten())
+        # (3) per window: sum_k W_k + sum_k S_k + nb sum_k k S_k, the last
+        # as a suffix scan E_k of the S_k, Y = sum_{k >= 1} E_k and
+        # log2(nb) doublings
+        self._scan(S, nblk)
+        self._tree(S, nblk, 1)
+        self._tree(W, nblk, 0)
+        k = torch.arange(nwin * nblk, device=dev) % nblk
+        first = torch.nonzero(k == 0).flatten()
+        tot = self._rcb_add(self._take(W, first), self._take(S, first))
+        if nblk > 1:
+            Z = self._take(S, torch.nonzero(k == 1).flatten())
+            for _ in range(nb.bit_length() - 1):
+                Z = self._rcb_add(Z, Z)
+            tot = self._rcb_add(tot, Z)
+        return self._join(*tot).reshape(nwin, 3, self.d, NLIMB)
+
     # -- kernel wrappers ----------------------------------------------------
     def _check(self, t, shape_tail, what):
         if t.dtype != torch.int32 or not t.is_contiguous():
@@ -302,6 +396,52 @@ class ECCtx:
             raise RuntimeError(f"madd_accumulate launch failed: CUDA error "
                                f"{rc}")
         _LAUNCHES[("madd_accumulate", self.name)] += 1
+        return out
+
+    def bucket_finish(self, accs, bidx, runrem):
+        """K4.  accs (nwin, L, 3, d, 10) lane accumulators (K1's output,
+        not modified); bidx (nwin, B) int32 global first lane of each
+        bucket (sentinel nwin * L: empty), its lanes a run in bucket
+        order; runrem (nwin, L) int32 lanes left in the lane's run (0 on
+        an unused lane).  Returns the (nwin, 3, d, 10) window sums
+        sum_b b S_b, b = 1..B, S_b the sum of bucket b's lanes."""
+        dev = accs.device
+        nwin, L = accs.shape[:2]
+        B = bidx.shape[1]
+        if tuple(bidx.shape) != (nwin, B) or B < 2 or B & (B - 1):
+            raise ValueError("bucket_finish: bidx must be (nwin, B), B a "
+                             "power of two >= 2")
+        if tuple(runrem.shape) != (nwin, L):
+            raise ValueError("bucket_finish: runrem must be (nwin, L)")
+        if dev.type == "cpu":
+            _PLAIN[("bucket_finish", self.name)] += 1
+            return self.bucket_finish_plain(accs, bidx, runrem)
+        if dev.type != "cuda":
+            raise ValueError(f"bucket_finish: unsupported device {dev}")
+        self._check(accs, (L, 3, self.d, NLIMB), "accs")
+        for t, nm in ((bidx, "bidx"), (runrem, "runrem")):
+            if t.device != dev or t.dtype != torch.int32 \
+                    or not t.is_contiguous():
+                raise ValueError(f"{nm}: contiguous int32 on {dev} expected")
+        from .kernels import lib
+
+        nblk = B // min(B, self.FINISH_BLOCK)
+        out = torch.empty((nwin, 3, self.d, NLIMB), dtype=torch.int32,
+                          device=dev)
+        scratch = torch.empty_like(accs)
+        part = torch.empty((nwin, nblk, 2, 3, self.d, NLIMB),
+                           dtype=torch.int32, device=dev)
+        done = torch.empty((nwin,), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib("bucket_finish").pcd_bucket_finish(
+            self.d, accs.data_ptr(), bidx.data_ptr(), runrem.data_ptr(),
+            scratch.data_ptr(), part.data_ptr(),
+            done.data_ptr(), out.data_ptr(), nwin, L, B,
+            self.kconsts.ctypes.data_as(ctypes.c_void_p), stream)
+        if rc != 0:
+            raise RuntimeError(f"bucket_finish launch failed: CUDA error "
+                               f"{rc}")
+        _LAUNCHES[("bucket_finish", self.name)] += 1
         return out
 
     def add(self, P, Q):

@@ -22,10 +22,11 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-HEADERS = ("field.cuh", "ec.cuh")
+HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh")
 SOURCES = {"madd_accumulate": "madd_accumulate.cu",
            "complete_add": "complete_add.cu",
-           "madd": "madd.cu"}
+           "madd": "madd.cu",
+           "bucket_finish": "bucket_finish.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -108,8 +109,12 @@ def lib(name: str) -> ctypes.CDLL:
         elif name == "complete_add":
             L.pcd_complete_add.restype = ci
             L.pcd_complete_add.argtypes = [ci, vp, vp, vp, cl, vp, vp]
-        else:
+        elif name == "madd":
             L.pcd_madd.restype = ci
             L.pcd_madd.argtypes = [ci, vp, vp, vp, vp, cl, vp, vp]
+        else:
+            L.pcd_bucket_finish.restype = ci
+            L.pcd_bucket_finish.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
+                                            ci, ci, ci, vp, vp]
         _libs[name] = L
         return L

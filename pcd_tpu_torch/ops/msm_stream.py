@@ -12,11 +12,10 @@ The integer bookkeeping is host work and the field math is device work:
         in one launch, gathering its table rows by index and negating Y
         for negative digits itself (so the table holds each point once,
         where the reference doubled it with a -Y half);
-        the two-phase finish (`_finish`, the counterpart of _finish_dev)
-        merges each bucket's lanes with a segmented suffix scan, gathers
-        one sum per bucket, and turns sum_b b*S_b into a suffix scan plus
-        a halving reduce, each step one K2 launch (ops/ec.py add) between
-        torch shifts, masks and gathers;
+        K4 (ops/ec.py bucket_finish) turns each window's lane
+        accumulators into sum_b b*S_b in one launch (the counterpart of
+        _finish_dev; `finish_steps` keeps the earlier K2-step version as
+        the yardstick);
   host  the Horner tail combines the nwin window sums.
 
 The schedule crosses as plain int32 (the reference's 3-byte packed wire
@@ -80,15 +79,14 @@ class StreamSchedule:
         self._dev = {}
 
     def on(self, device):
-        """(perm, loads, bidx, runrem) tensors on `device`, uploaded once."""
+        """(perm, loads, bidx, runrem) int32 tensors on `device`, uploaded
+        once."""
         key = str(device)
         hit = self._dev.get(key)
         if hit is None:
-            hit = (torch.from_numpy(self.perm.view(np.int32)).to(device),
-                   torch.from_numpy(self.loads).to(device),
-                   torch.from_numpy(self.bidx.reshape(-1).astype(np.int64)
-                                    ).to(device),
-                   torch.from_numpy(self.runrem.reshape(-1)).to(device))
+            hit = tuple(torch.from_numpy(np.ascontiguousarray(a).view(
+                np.int32)).to(device) for a in (self.perm, self.loads,
+                                                self.bidx, self.runrem))
             self._dev[key] = hit
         return hit
 
@@ -238,16 +236,22 @@ class StreamMSMCtx:
         return torch.from_numpy(tab).to(device)
 
     # -- device -----------------------------------------------------------
-    def _finish(self, accs, bidx_flat, runrem_flat, maxrun: int):
-        """accs (nwin, L, 3, d, 10) lane accumulators -> (nwin, 3, d, 10)
+    def finish_steps(self, accs, bidx, runrem, maxrun: int):
+        """The earlier K2-step finish, kept as the yardstick and oracle of
+        K4 for chip_smoke.py and the tests; no path calls it.  accs
+        (nwin, L, 3, d, 10) lane accumulators, bidx (nwin, B) and runrem
+        (nwin, L) as StreamSchedule.on gives them -> (nwin, 3, d, 10)
         window sums sum_b b*S_b (the two-phase finish of _finish_dev,
-        pcd_tpu/ops/msm_stream.py:281-340)."""
+        pcd_tpu/ops/msm_stream.py:281-340), each step one K2 launch between
+        torch shifts, masks and gathers."""
         ec = self.ec
         L, B = self.L, self.B
         nwin = accs.shape[0]
         dev = accs.device
         tail = accs.shape[2:]
         U = accs.reshape((nwin * L,) + tail)
+        runrem_flat = runrem.reshape(-1)
+        bidx_flat = bidx.reshape(-1).long()
         # (1) in-segment suffix scan: each bucket's first lane ends with
         # the sum of all the bucket's lanes
         s = 1
@@ -277,11 +281,16 @@ class StreamMSMCtx:
             w //= 2
         return Q.reshape((nwin,) + tail)
 
+    def _finish(self, accs, bidx, runrem):
+        """accs (nwin, L, 3, d, 10) lane accumulators -> (nwin, 3, d, 10)
+        window sums sum_b b*S_b: one K4 launch."""
+        return self.ec.bucket_finish(accs, bidx, runrem)
+
     def window_sums(self, table, sched: StreamSchedule) -> torch.Tensor:
         """(nwin, 3, d, 10) window sums on the table's device."""
         perm, loads, bidx, runrem = sched.on(table.device)
         accs = self.ec.madd_accumulate(table, perm, loads)
-        return self._finish(accs, bidx, runrem, sched.maxrun)
+        return self._finish(accs, bidx, runrem)
 
     def window_sums_async(self, table, sched: StreamSchedule):
         """Enqueue the device pipeline without waiting: returns (window

@@ -84,6 +84,37 @@ def test_stream_msm_on_card(form, cuda_device):
     assert sctx.msm_limbs(table, limbs) == host_msm(pts, scalars)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_bucket_finish_matches_plain(form, cuda_device):
+    """K4 on K1's lanes for a C++ schedule with a long run (a third of the
+    scalars equal), an empty window and P, -P rows, one launch."""
+    cfg, curve, pts, xs, ys, inf = _table(form, 600, 7)
+    sctx = StreamMSMCtx(curve, cfg.Fr.BITS, c=8, lanes=256)
+    ec = sctx.ec
+    table = sctx.table_from_limbs(xs, ys, inf, cuda_device)
+    table[3] = table[2]
+    table[3, 1] = ec.f.from_plain(ec.f.neg(ec.f.to_plain(table[2, 1])))
+    rng = np.random.default_rng(8)
+    r = cfg.Fr.MODULUS
+    scalars = [int.from_bytes(rng.bytes(40), "little") % r
+               for _ in range(len(pts))]
+    scalars[3] = scalars[2]
+    scalars[100:300] = [scalars[100]] * 200
+    limbs = sctx.limb_rows(scalars, (cfg.Fr.BITS + 63) // 64 * 8)
+    sched = sctx.schedule_native(limbs)
+    perm, loads, bidx, runrem = sched.on(cuda_device)
+    accs = ec.madd_accumulate(table, perm, loads)
+    before = launch_counts().get(("bucket_finish", curve.name), 0)
+    got = ec.bucket_finish(accs, bidx, runrem)
+    assert launch_counts()[("bucket_finish", curve.name)] == before + 1
+    assert torch.equal(got, ec.bucket_finish_plain(accs, bidx, runrem))
+    old = sctx.finish_steps(accs, bidx, runrem, sched.maxrun).cpu().numpy()
+    g = got.cpu().numpy()
+    for w in range(sctx.nwin):
+        assert ec.decode_point(g[w]) == ec.decode_point(old[w]), w
+
+
 G1_FORMS = [f for f in FORMS if f[2] == "g1"] + [("toy_cycle", "help", "g1")]
 G1_IDS = ["-".join(f) for f in G1_FORMS]
 
