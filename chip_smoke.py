@@ -280,18 +280,16 @@ def finish_work(ec, accs, bidx, runrem):
     return adds, nbytes, adds * MULS_ADD * PRODUCTS[ec.d] * 2
 
 
-def check_finish(ec, cfg, which, rng, form, dev, n=1 << 16, c=12,
-                 lanes=8192):
-    """K4 on a real C++ schedule (c-bit windows, 8192 lanes) of n scalars
-    below 2^297: window 2 all zero digits (window 1's top two bits clear,
-    so no carry), window 3 every digit 5 (one bucket of n points, the run
-    of maxrun lanes), and rows 0 and 1 P and -P with the same scalar (they
-    share a bucket in every window).  K1 folds the lanes; K4 must equal its plain
-    version limb for limb and finish_steps as affine points, window by
-    window; both timed with CUDA events in turns (K4, steps, steps,
-    K4)."""
-    import torch
-
+def finish_inputs(ec, cfg, which, rng, dev, n=1 << 16, c=12, lanes=8192,
+                  edges=True):
+    """K4's inputs on a real C++ schedule (c-bit windows, 8192 lanes) of n
+    scalars below 2^297: window 2 all zero digits (window 1's top two bits
+    clear, so no carry), window 3 every digit 5 (one bucket of n points,
+    the run of maxrun lanes), and rows 0 and 1 P and -P with the same
+    scalar (they share a bucket in every window); with edges=False only
+    the random scalars (every bucket a run of about four lanes, as in the
+    chains' MSMs).  K1 folds the lanes.  Returns (StreamMSMCtx, schedule,
+    accs, bidx, runrem)."""
     from pcd_tpu_torch import native
     from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
 
@@ -300,17 +298,29 @@ def check_finish(ec, cfg, which, rng, form, dev, n=1 << 16, c=12,
         1, 1 << 62, n)], cfg.Fr.BITS)
     sctx = StreamMSMCtx(curve, cfg.Fr.BITS, c, lanes)
     table = sctx.table_from_limbs(xs, ys, inf, dev)
-    table[1] = table[0]
-    table[1, 1] = ec.f.from_plain(ec.f.neg(ec.f.to_plain(table[0, 1])))
-    mask = (1 << c) - 1
-    keep = ((1 << 297) - 1 - (3 << (2 * c - 2)) - (mask << 2 * c)
-            - (mask << 3 * c))
-    sc = [(int.from_bytes(rng.bytes(38), "little") & keep) | (5 << 3 * c)
+    sc = [int.from_bytes(rng.bytes(38), "little") % (1 << 297)
           for _ in range(n)]
-    sc[1] = sc[0]
+    if edges:
+        table[1] = table[0]
+        table[1, 1] = ec.f.from_plain(ec.f.neg(ec.f.to_plain(table[0, 1])))
+        mask = (1 << c) - 1
+        keep = ((1 << 297) - 1 - (3 << (2 * c - 2)) - (mask << 2 * c)
+                - (mask << 3 * c))
+        sc = [(s & keep) | (5 << 3 * c) for s in sc]
+        sc[1] = sc[0]
     sched = sctx.schedule_native(native.ints_to_limbs(sc))
     perm, loads, bidx, runrem = sched.on(dev)
     accs = ec.madd_accumulate(table, perm, loads)
+    return sctx, sched, accs, bidx, runrem
+
+
+def check_finish(ec, cfg, which, rng, form, dev):
+    """K4 on finish_inputs: it must equal its plain version limb for limb
+    and finish_steps as affine points, window by window; both timed with
+    CUDA events in turns (K4, steps, steps, K4)."""
+    import torch
+
+    sctx, sched, accs, bidx, runrem = finish_inputs(ec, cfg, which, rng, dev)
     got = ec.bucket_finish(accs, bidx, runrem)
     sync(dev)
     t0 = time.perf_counter()
@@ -337,8 +347,8 @@ def check_finish(ec, cfg, which, rng, form, dev, n=1 << 16, c=12,
     adds, nbytes, mads = finish_work(ec, accs, bidx, runrem)
     bound = max(nbytes / HBM_BYTES_PER_S, mads / INT32_MAD_PER_S) * 1e3
     say(2, f"K4 bucket_finish {form}: exact against plain and finish_steps "
-           f"on {sctx.nwin}x{sctx.L} lanes ({n} scalars, T={sched.T}, "
-           f"maxrun {sched.maxrun}, window 3's bucket {bucket5} lanes, "
+           f"on {sctx.nwin}x{sctx.L} lanes ({int(sched.loads.sum())} "
+           f"digits, T={sched.T}, maxrun {sched.maxrun}, window 3's bucket {bucket5} lanes, "
            f"{adds} adds); {ms:.3f} ms vs finish_steps {ms_old:.3f} ms, "
            f"bound {bound:.3f} ms, plain {plain_ms:.0f} ms")
 

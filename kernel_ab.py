@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""K1 (madd_accumulate) of this checkout against K1 of another copy of
-pcd_tpu_torch/csrc on one NVIDIA card, and the integer multiply-adds one
-field product issues in SASS in each.  Run from the root of a checkout:
+"""Kernel A/B measurements on one NVIDIA card.  Run from the root of a
+checkout:
 
-    python3 kernel_ab.py --other DIR [--sweep]
+    python3 kernel_ab.py --other DIR [--sweep] [--k4]
+    python3 kernel_ab.py --k4
 
-DIR is another csrc directory, e.g. the parent commit's, unpacked with
-`git archive <commit> pcd_tpu_torch/csrc | tar -x -C build/parent`.
+--other DIR: K1 (madd_accumulate) of this checkout against K1 of another
+copy of pcd_tpu_torch/csrc, and the integer multiply-adds one field
+product issues in SASS in each.  DIR is e.g. the parent commit's csrc,
+unpacked with `git archive <commit> pcd_tpu_torch/csrc | tar -x -C
+build/parent`.
 
   sass   a probe kernel per tree calls fp_mul (D = 1) and ext_mul<2>,
          ext_mul<3> once; `cuobjdump -sass` counts its IMAD-family
@@ -17,16 +20,27 @@ DIR is another csrc directory, e.g. the parent commit's, unpacked with
          table of random field elements, random signs), CUDA events, in
          the order other, this, this, other; the two outputs must agree
          limb for limb;
-  sweep  this tree's K1 built again with each variant in SWEEP (the
-         K1_MINB1..3 of madd_accumulate.cu, and PCD_FP_MUL_NOINLINE of
-         field.cuh) and timed the same way, with ptxas' registers and
-         spills per build.
+  sweep  this tree's K1 built again with each `__launch_bounds__` minimum
+         of SWEEP (K1_MINB1..3 of madd_accumulate.cu) and timed the same
+         way, with ptxas' registers and spills per build.
+
+--k4: the stream-MSM finish, K4 (bucket_finish) against the running-sum
+design of kernel_ab_runsum.cu at M = 2, 4, 8, 16 buckets a thread, for
+each form on chip_smoke.py phase 2's inputs (finish_inputs: 2^16 scalars,
+c = 12, an all-zero window, a one-bucket window, P and -P) and on dense
+ones (the same without the edge cases: about four lanes a bucket, as in
+the chains' MSMs); the variant must give K4's affine window sums; CUDA
+events in the order K4, variant Ms, variant Ms reversed, K4.  Then one thread's chain of 32 dependent complete adds through
+K4's add (pcd_add_chain) in 1, 132, 264 and 400 blocks of 128 threads
+(400: K4's grid at c = 12), which gives the latency of one add.
+
 Prints one line per measurement and a JSON summary as the last line.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import re
@@ -37,12 +51,12 @@ from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # variants of this tree's K1: minimum blocks of 128 threads per SM for
-# every D (register caps 255, 168, 128: 8, 12, 16 warps per SM), and fp_mul
-# out of line at D = 1
+# every D (register caps 255, 168, 128: 8, 12, 16 warps per SM)
 SWEEP = {f"minb{b}": [f"-DK1_MINB{d}={b}" for d in (1, 2, 3)]
          for b in (1, 3, 4)}
-SWEEP.update({f"fpcall_minb{b}": ["-DPCD_FP_MUL_NOINLINE",
-                                  f"-DK1_MINB1={b}"] for b in (3, 4)})
+RUNSUM = os.path.join(HERE, "kernel_ab_runsum.cu")
+RUNSUM_M = (2, 4, 8, 16)
+CHAIN_GRIDS, CHAIN_N = (1, 132, 264, 400), 32
 FORMS = (("mnt4_298.G1", "main", "g1", 24), ("mnt4_298.G2", "main", "g2", 24),
          ("mnt6_298.G1", "help", "g1", 4), ("mnt6_298.G2", "help", "g2", 4))
 PROBE = r"""
@@ -115,10 +129,21 @@ def short(fn):
 
 
 def load_k1(so):
-    L = ctypes.CDLL(so)
-    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    L.pcd_madd_accumulate.restype = ci
-    L.pcd_madd_accumulate.argtypes = [ci, vp, vp, vp, vp, cl, ci, ci, vp, vp]
+    from pcd_tpu_torch.ops.kernels import load
+
+    return load(so, "madd_accumulate")
+
+
+def load_runsum(so):
+    from pcd_tpu_torch.ops.kernels import load
+
+    L = load(so, "bucket_finish")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    L.pcd_bucket_finish_runsum.restype = ci
+    L.pcd_bucket_finish_runsum.argtypes = [ci, ci] + [vp] * 7 + [ci] * 3 \
+        + [vp, vp]
+    L.pcd_add_chain.restype = ci
+    L.pcd_add_chain.argtypes = [ci, vp, vp, ci, ci, vp, vp]
     return L
 
 
@@ -174,12 +199,94 @@ def ms(fn, reps=5):
     return a.elapsed_time(b) / reps
 
 
+def k4_ab(lib, summary):
+    """K4 against the running-sum variant on phase 2's inputs and on
+    dense ones, then the add chain (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from pcd_tpu_torch.ops.ec import ec_ctx
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2026)
+    summary["k4"], summary["chain_us_per_add"] = {}, {}
+    for (form, cfg, which), edges in itertools.product(cs.form_cases(),
+                                                      (True, False)):
+        ec = ec_ctx(getattr(cfg, which))
+        kc = ec.kconsts.ctypes.data_as(ctypes.c_void_p)
+        _, sched, accs, bidx, runrem = cs.finish_inputs(
+            ec, cfg, which, rng, dev, edges=edges)
+        what = "phase 2" if edges else "dense"
+        nwin, L = runrem.shape
+        B = bidx.shape[1]
+        want = [ec.decode_point(w)
+                for w in ec.bucket_finish(accs, bidx, runrem).cpu().numpy()]
+
+        def variant(M):
+            out = torch.empty((nwin, 3, ec.d, 10), dtype=torch.int32,
+                              device=dev)
+            part = torch.empty((nwin, B // (128 * M), 2, 3, ec.d, 10),
+                               dtype=torch.int32, device=dev)
+            scratch = torch.empty_like(accs)
+            done = torch.empty((nwin,), dtype=torch.int32, device=dev)
+            rc = lib.pcd_bucket_finish_runsum(
+                ec.d, M, accs.data_ptr(), bidx.data_ptr(), runrem.data_ptr(),
+                scratch.data_ptr(), part.data_ptr(), done.data_ptr(),
+                out.data_ptr(), nwin, L, B, kc,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"runsum M={M}: CUDA error {rc}")
+            return out
+
+        for M in RUNSUM_M:
+            got = [ec.decode_point(w) for w in variant(M).cpu().numpy()]
+            if got != want:
+                raise AssertionError(f"runsum M={M} {form}: != K4")
+        fns = {"k4": lambda: ec.bucket_finish(accs, bidx, runrem)}
+        for M in RUNSUM_M:
+            fns[f"runsum_m{M}"] = lambda M=M: variant(M)
+        order = list(fns) + list(reversed(list(fns)))
+        times = {}
+        for name in order:
+            times.setdefault(name, []).append(ms(fns[name], reps=3))
+        res = {k: sum(v) / len(v) for k, v in times.items()}
+        summary["k4"][f"{form} {what}"] = res
+        print(f"K4 {form} ({what} inputs, maxrun {sched.maxrun}): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in res.items()),
+              flush=True)
+        if not edges:
+            continue
+        pts = accs.reshape(-1, 3, ec.d, 10)[:max(CHAIN_GRIDS) * 128]
+        pts = pts.contiguous()
+        out = torch.empty_like(pts)
+        chain = {}
+        for g in CHAIN_GRIDS:
+            def run(g=g):
+                rc = lib.pcd_add_chain(
+                    ec.d, pts.data_ptr(), out.data_ptr(), g * 128, CHAIN_N,
+                    kc, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"add chain: CUDA error {rc}")
+            chain[g] = ms(run, reps=3) * 1e3 / CHAIN_N
+        P = ec.decode_point(pts[0].cpu().numpy())
+        if ec.decode_point(out[0].cpu().numpy()) != P * (CHAIN_N + 1):
+            raise AssertionError(f"add chain {form}: != (N + 1) P")
+        summary["chain_us_per_add"][form] = chain
+        print(f"add chain {form}, us per add by blocks of 128: " + ", ".join(
+            f"{g}: {v:.2f}" for g, v in chain.items()), flush=True)
+        del accs, pts, out
+        torch.cuda.empty_cache()
+
+
 def main(argv):
-    if "--other" not in argv:
+    other = (os.path.abspath(argv[argv.index("--other") + 1])
+             if "--other" in argv else None)
+    k4 = "--k4" in argv
+    if other is None and not k4:
         print(__doc__, file=sys.stderr)
         return 2
-    other = os.path.abspath(argv[argv.index("--other") + 1])
-    sweep = "--sweep" in argv
+    sweep = "--sweep" in argv and other is not None
     sys.path.insert(0, HERE)
     import torch
 
@@ -187,6 +294,7 @@ def main(argv):
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops import kernels
     from pcd_tpu_torch.ops.ec import ec_ctx
     from pcd_tpu_torch.ops.kernels import CSRC, NVCC_FLAGS
 
@@ -198,7 +306,7 @@ def main(argv):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "probe.cu"), "w") as fh:
         fh.write(PROBE)
-    builds = {"other": (other, []), "this": (CSRC, [])}
+    builds = {"other": (other, []), "this": (CSRC, [])} if other else {}
     if sweep:
         for name, defs in SWEEP.items():
             builds["this_" + name] = (CSRC, defs)
@@ -214,6 +322,11 @@ def main(argv):
                 "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-I", src, "-o", cub,
                 os.path.join(out_dir, "probe.cu")]), cub)
+    if k4:
+        so = os.path.join(out_dir, "runsum.so")
+        procs["runsum"] = (nvcc([*NVCC_FLAGS, "-I", CSRC, "-o", so, RUNSUM]),
+                           so)
+        kernels.build()     # the port's kernels, meanwhile
     logs, libs, summary = {}, {}, {"sass": {}, "ms": {}, "ptxas": {}}
     for name, (proc, path) in procs.items():
         logs[name], _ = proc.communicate()
@@ -229,6 +342,16 @@ def main(argv):
         for ln in regs:
             print(f"ptxas {name}: {ln}")
         libs[name] = load_k1(procs[name][1])
+    if k4:
+        regs = [ln.strip() for ln in logs["runsum"].splitlines()
+                if "Compiling" in ln or "registers" in ln or "spill" in ln]
+        summary["ptxas"]["runsum"] = regs
+        for ln in regs:
+            print(f"ptxas runsum: {ln}")
+        k4_ab(load_runsum(procs["runsum"][1]), summary)
+    if not other:
+        print(json.dumps(summary))
+        return 0
     for tree in ("other", "this"):
         for fn, c in sass_counts(procs["probe_" + tree][1]).items():
             if short(fn):

@@ -38,7 +38,7 @@
 // log2(maxrun) + 2 log2(FB) + 2 log2(nblk) + log2(FB) + 2 dependent adds.
 #include "ec.cuh"
 
-#define FB 128  // buckets per block, one thread each (ECCtx.FINISH_BLOCK)
+#define FB 128  // buckets per block, one thread each (pcd_finish_block)
 
 // R = P + Q (R may be P or Q).  Out of line for D > 1, where the operands
 // stay in shared or global memory: one copy of the Fp^D formula serves
@@ -105,6 +105,59 @@ __device__ __forceinline__ void block_tree(Pt<D>* cur, int t, int n, int off,
   }
 }
 
+// (1) for the nb buckets from bucket j0 of window w (their first lanes
+// and lane counts left in start[], cnt[]): each run pairwise into its first
+// lane.  Level s adds lane start + 2sq + s into start + 2sq; its pairs are
+// numbered across the buckets (a prefix over their pair counts, pre[0 ..
+// nb]), so each of the block's nt threads takes every nt-th pair, however
+// long or short the runs.  The partial sum at a lane covers min(s, lanes
+// left in the run) lanes after level s / 2: in accs if that is one lane,
+// else in scratch.  Ends before a barrier: the caller syncs.
+template <int D>
+__device__ __forceinline__ void merge_runs(
+    const Pt<D>* A, Pt<D>* S, const int32_t* bidx, const int32_t* runrem,
+    long empty, long j0, int nb, long* start, int* cnt, int* pre, int* top,
+    int t, int nt, const FieldConsts& k) {
+  if (t == 0) *top = 0;
+  for (int j = t; j < nb; j += nt) {
+    start[j] = bidx[j0 + j];
+    cnt[j] = start[j] == empty ? 0 : runrem[start[j]];
+  }
+  __syncthreads();
+  for (int j = t; j < nb; j += nt)
+    if (cnt[j] > 1) atomicMax(top, cnt[j]);
+  __syncthreads();
+  const int longest = *top;
+  for (int s = 1; s < longest; s *= 2) {
+    __syncthreads();
+    if (t == 0) {
+      int acc = 0;
+      for (int j = 0; j < nb; ++j) {
+        pre[j] = acc;
+        const int c = cnt[j];
+        acc += c > s ? (c - s + 2 * s - 1) / (2 * s) : 0;
+      }
+      pre[nb] = acc;
+    }
+    __syncthreads();
+    for (int p = t; p < pre[nb]; p += nt) {
+      int lo = 0, hi = nb;               // pre[lo] <= p < pre[lo + 1]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (pre[mid] <= p)
+          lo = mid;
+        else
+          hi = mid;
+      }
+      const int q = p - pre[lo];
+      const long g = start[lo] + 2L * s * q;
+      const int left = cnt[lo] - 2 * s * q - s;  // lanes from g + s on
+      k4_add<D>(S[g], s == 1 ? A[g] : S[g],
+                s == 1 || left == 1 ? A[g + s] : S[g + s], k);
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(FB)
 bucket_finish_kernel(const uint32_t* __restrict__ accs,
@@ -125,49 +178,10 @@ bucket_finish_kernel(const uint32_t* __restrict__ accs,
   const int nblk = B / nb;
   const int w = blockIdx.x / nblk, kb = blockIdx.x - w * nblk;
   const int t = threadIdx.x;
-  const long start = bidx[(long)w * B + kb * nb + t];
-  const int cnt = start == (long)nwin * L ? 0 : runrem[start];
-  s_start[t] = start;
-  s_cnt[t] = cnt;
-  if (t == 0) s_top = 0;
-  __syncthreads();
-  if (cnt > 1) atomicMax(&s_top, cnt);
-  __syncthreads();
-  const int top = s_top;
-  // (1) runs pairwise into their first lanes.  Level s adds lane
-  // start + 2sq + s into start + 2sq; its pairs are numbered across the
-  // block (a prefix over the buckets' pair counts), so each thread takes
-  // every nb-th pair, however long or short the runs.  The partial sum at
-  // a lane covers min(s, lanes left in the run) lanes after level s / 2:
-  // in accs if that is one lane, else in scratch.
-  for (int s = 1; s < top; s *= 2) {
-    __syncthreads();
-    if (t == 0) {
-      int acc = 0;
-      for (int j = 0; j < nb; ++j) {
-        s_pre[j] = acc;
-        const int c = s_cnt[j];
-        acc += c > s ? (c - s + 2 * s - 1) / (2 * s) : 0;
-      }
-      s_pre[nb] = acc;
-    }
-    __syncthreads();
-    for (int p = t; p < s_pre[nb]; p += nb) {
-      int lo = 0, hi = nb;               // s_pre[lo] <= p < s_pre[lo + 1]
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (s_pre[mid] <= p)
-          lo = mid;
-        else
-          hi = mid;
-      }
-      const int q = p - s_pre[lo];
-      const long g = s_start[lo] + 2L * s * q;
-      const int left = s_cnt[lo] - 2 * s * q - s;  // lanes from g + s on
-      k4_add<D>(S[g], s == 1 ? A[g] : S[g],
-                s == 1 || left == 1 ? A[g + s] : S[g + s], k);
-    }
-  }
+  merge_runs<D>(A, S, bidx, runrem, (long)nwin * L, (long)w * B + kb * nb,
+                nb, s_start, s_cnt, s_pre, &s_top, t, nb, k);
+  const long start = s_start[t];
+  const int cnt = s_cnt[t];
   __syncthreads();
   // (2) the block's buckets: S = C_0 and W = sum_{t >= 1} C_t = sum_t t
   // S_t to the window's parts
@@ -259,3 +273,7 @@ extern "C" int pcd_bucket_finish(int D, const void* accs, const void* bidx,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// K4's buckets per block, which ECCtx.bucket_finish_plain must share to
+// repeat its adds in order
+extern "C" int pcd_finish_block() { return FB; }

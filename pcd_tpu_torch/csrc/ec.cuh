@@ -66,7 +66,10 @@ PCD_FN void pt_store(uint32_t* dst, const Pt<D>& P) {
 #endif
 
 // Shared tail of both formulas, from t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2,
-// t3 = X1 Y2 + X2 Y1, t4 = X1 Z2 + X2 Z1, t5 = Y1 Z2 + Y2 Z1.
+// t3 = X1 Y2 + X2 Y1, t4 = X1 Z2 + X2 Z1, t5 = Y1 Z2 + Y2 Z1.  Ordered so
+// that each input dies as early as it can: at most seven field elements
+// are live besides the product in flight (the kernels' register peak).
+// R is written after the last read of t0, t1, t2 and t4.
 template <int D>
 PCD_FN void rcb_tail(Pt<D>& R, const Fe<D>& t0,
                                          const Fe<D>& t1, const Fe<D>& t2,
@@ -77,27 +80,27 @@ PCD_FN void rcb_tail(Pt<D>& R, const Fe<D>& t0,
   fe_load_const<D>(A, k.a);
   fe_load_const<D>(B3, k.b3);
   fe_load_const<D>(A2, k.a2);
-  Fe<D> zp, x3, z3, y3, t1n, t2n, t4n;
+  Fe<D> x3, z3, t1n, t4n;
   fe_mul(u, A, t4, k);
   fe_mul(v, B3, t2, k);
-  fe_add(zp, u, v, k);          // Zp = a t4 + 3b t2
-  fe_sub(x3, t1, zp, k);
-  fe_add(z3, t1, zp, k);
-  fe_mul(y3, x3, z3, k);
+  fe_add(u, u, v, k);           // Zp = a t4 + 3b t2
+  fe_sub(x3, t1, u, k);
+  fe_add(z3, t1, u, k);         // t1 dead
   fe_add(t1n, t0, t0, k);
   fe_add(t1n, t1n, t0, k);
   fe_mul(u, A, t2, k);
   fe_add(t1n, t1n, u, k);       // 3 t0 + a t2
   fe_mul(u, A, t0, k);
   fe_mul(v, A2, t2, k);
-  fe_sub(t2n, u, v, k);         // a t0 - a^2 t2
+  fe_sub(t4n, u, v, k);         // a t0 - a^2 t2; t0, t2 dead
   fe_mul(u, B3, t4, k);
-  fe_add(t4n, u, t2n, k);       // 3b t4 + t2n
-  fe_mul(u, t1n, t4n, k);
-  fe_add(R.Y, y3, u, k);
+  fe_add(t4n, u, t4n, k);       // 3b t4 + a t0 - a^2 t2; t4 dead
+  fe_mul(u, x3, z3, k);
+  fe_mul(v, t1n, t4n, k);
+  fe_add(R.Y, u, v, k);
   fe_mul(u, t3, x3, k);
   fe_mul(v, t5, t4n, k);
-  fe_sub(R.X, u, v, k);
+  fe_sub(R.X, u, v, k);         // x3, t4n dead
   fe_mul(u, t5, z3, k);
   fe_mul(v, t3, t1n, k);
   fe_add(R.Z, u, v, k);

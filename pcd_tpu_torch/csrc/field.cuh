@@ -221,23 +221,11 @@ PCD_NOINLINE void ext_mul(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
   }
 }
 
-#ifdef PCD_FP_MUL_NOINLINE
-// fp_mul out of line, its operands in local memory (kernel_ab.py --sweep)
-PCD_NOINLINE void fp_mul_call(Fe<1>& r, const Fe<1>& a, const Fe<1>& b,
-                              const FieldConsts& k) {
-  fp_mul(r.c[0], a.c[0], b.c[0], k);
-}
-#endif
-
 template <int D>
 PCD_FN void fe_mul(Fe<D>& r, const Fe<D>& a, const Fe<D>& b,
                    const FieldConsts& k) {
   if constexpr (D == 1) {
-#ifdef PCD_FP_MUL_NOINLINE
-    fp_mul_call(r, a, b, k);
-#else
     fp_mul(r.c[0], a.c[0], b.c[0], k);
-#endif
   } else {
     ext_mul<D>(r, a, b, k);
   }

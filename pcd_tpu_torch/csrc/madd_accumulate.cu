@@ -24,15 +24,17 @@
 // Minimum resident blocks of 128 threads per SM, per D.  An SM's
 // registers come in four quarters, each holding whole warps, so only caps
 // of 255, 168 and 128 registers (2, 3 or 4 blocks) change occupancy;
-// kernel_ab.py --sweep measures them.
+// kernel_ab.py --sweep measures them.  The fastest caps spill (D = 1:
+// 52 B, D = 2: 4 B, D = 3: 704 B); uncapped nothing spills, and K1 runs
+// 16-94% slower by form (PERF.md).
 #ifndef K1_MINB1
-#define K1_MINB1 3
+#define K1_MINB1 4
 #endif
 #ifndef K1_MINB2
 #define K1_MINB2 3
 #endif
 #ifndef K1_MINB3
-#define K1_MINB3 1
+#define K1_MINB3 4
 #endif
 #define K1_MINB(D) ((D) == 1 ? K1_MINB1 : (D) == 2 ? K1_MINB2 : K1_MINB3)
 

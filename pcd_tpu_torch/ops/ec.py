@@ -262,7 +262,8 @@ class ECCtx:
                                active != 0)
         return self._join(*out).reshape(acc.shape)
 
-    # K4's block: one thread per bucket, at most this many buckets
+    # K4's block: one thread per bucket, at most this many buckets (the
+    # kernel's FB; bucket_finish checks that the two agree)
     FINISH_BLOCK = 128
 
     @staticmethod
@@ -425,6 +426,10 @@ class ECCtx:
                 raise ValueError(f"{nm}: contiguous int32 on {dev} expected")
         from .kernels import lib
 
+        L4 = lib("bucket_finish")
+        if L4.pcd_finish_block() != self.FINISH_BLOCK:
+            raise RuntimeError("bucket_finish: the kernel's block size is "
+                               "not ECCtx.FINISH_BLOCK")
         nblk = B // min(B, self.FINISH_BLOCK)
         out = torch.empty((nwin, 3, self.d, NLIMB), dtype=torch.int32,
                           device=dev)
@@ -433,7 +438,7 @@ class ECCtx:
                            dtype=torch.int32, device=dev)
         done = torch.empty((nwin,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib("bucket_finish").pcd_bucket_finish(
+        rc = L4.pcd_bucket_finish(
             self.d, accs.data_ptr(), bidx.data_ptr(), runrem.data_ptr(),
             scratch.data_ptr(), part.data_ptr(),
             done.data_ptr(), out.data_ptr(), nwin, L, B,

@@ -90,6 +90,32 @@ def build() -> dict:
         return BUILD_INFO
 
 
+# the C entry of each kernel source: (function, restype, argtypes)
+_vp, _ci, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+ENTRIES = {
+    "madd_accumulate": [("pcd_madd_accumulate", _ci,
+                         [_ci, _vp, _vp, _vp, _vp, _cl, _ci, _ci, _vp, _vp])],
+    "complete_add": [("pcd_complete_add", _ci,
+                      [_ci, _vp, _vp, _vp, _cl, _vp, _vp])],
+    "madd": [("pcd_madd", _ci, [_ci, _vp, _vp, _vp, _vp, _cl, _vp, _vp])],
+    "bucket_finish": [("pcd_bucket_finish", _ci,
+                       [_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
+                        _ci, _vp, _vp]),
+                      ("pcd_finish_block", _ci, [])],
+}
+
+
+def load(so: str, name: str) -> ctypes.CDLL:
+    """The library at `so`, a build of kernel source `name` (this tree's
+    or another's), with the C entries of that source bound."""
+    L = ctypes.CDLL(so)
+    for fn, res, args in ENTRIES[name]:
+        f = getattr(L, fn)
+        f.restype = res
+        f.argtypes = args
+    return L
+
+
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source `name`, built on first use."""
     hit = _libs.get(name)
@@ -98,23 +124,6 @@ def lib(name: str) -> ctypes.CDLL:
     build()
     so = _so_path(name)
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        L = ctypes.CDLL(so)
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        if name == "madd_accumulate":
-            L.pcd_madd_accumulate.restype = ci
-            L.pcd_madd_accumulate.argtypes = [ci, vp, vp, vp, vp, cl, ci,
-                                              ci, vp, vp]
-        elif name == "complete_add":
-            L.pcd_complete_add.restype = ci
-            L.pcd_complete_add.argtypes = [ci, vp, vp, vp, cl, vp, vp]
-        elif name == "madd":
-            L.pcd_madd.restype = ci
-            L.pcd_madd.argtypes = [ci, vp, vp, vp, vp, cl, vp, vp]
-        else:
-            L.pcd_bucket_finish.restype = ci
-            L.pcd_bucket_finish.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
-                                            ci, ci, ci, vp, vp]
-        _libs[name] = L
-        return L
+        if name not in _libs:
+            _libs[name] = load(so, name)
+        return _libs[name]

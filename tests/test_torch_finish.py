@@ -12,8 +12,9 @@ minute for toy G1 and minutes for the 298-bit and G2 forms, so this file
 holds every form to pcd_tpu's digits and host curve instead.  Forms: toy
 G1, toy MNT4 Fq2 and MNT6 Fq3 G2, MNT4-298 and MNT6-298 G1 and G2; edge
 cases on toy G1: all-zero scalars, every digit in one bucket, only the
-top bucket, P and -P in one bucket, more points than lanes and flagged
-infinity rows.  K4's plain version must also agree with the K2-step
+top bucket, P and -P in one bucket, more points than lanes, flagged
+infinity rows, and c = 9, 10, where a window's buckets span several of
+K4's blocks.  K4's plain version must also agree with the K2-step
 finish it replaced (StreamMSMCtx.finish_steps).
 """
 
@@ -66,10 +67,10 @@ def _points(gen, bits, n, seed):
                            bits)
 
 
-def _ref_windows(rcurve, bits, pts, limbs):
+def _ref_windows(rcurve, bits, pts, limbs, c=C, lanes=LANES):
     """pcd_tpu's window sums: its signed digits, each window's buckets
     summed on its host curve, then sum_b b S_b by a running sum."""
-    rc = RefCtx(rcurve, bits, c=C, lanes=LANES)
+    rc = RefCtx(rcurve, bits, c=c, lanes=lanes)
     mags, signs = rc.digits_signed(limbs)
     out = []
     for w in range(rc.nwin):
@@ -86,10 +87,10 @@ def _ref_windows(rcurve, bits, pts, limbs):
     return out
 
 
-def _port_finish(tcurve, bits, pts, limbs, steps=False):
+def _port_finish(tcurve, bits, pts, limbs, steps=False, c=C, lanes=LANES):
     """The port's K1 and K4 plain versions on its C++ schedule: affine
     window sums (and finish_steps' too, when asked)."""
-    pc = StreamMSMCtx(tcurve, bits, c=C, lanes=LANES)
+    pc = StreamMSMCtx(tcurve, bits, c=c, lanes=lanes)
     xs, ys, inf = _points_to_arrays(pts, pc.ec.d)
     table = pc.table_from_limbs(xs, ys, inf.astype(bool), CPU)
     sched = pc.schedule_native(limbs)
@@ -129,13 +130,13 @@ def test_finish_matches_reference(form):
     assert got == _ref_windows(rcurve, bits, pts, limbs)
 
 
-def _toy_case(scalars, pts=None, n=None, steps=False):
+def _toy_case(scalars, pts=None, n=None, steps=False, c=C, lanes=LANES):
     rcurve, rgen, tcurve, bits = _curves(FORMS[0])
     if pts is None:
         pts = _points(rgen, bits, n or len(scalars), 3)
     limbs = _limbs(scalars, bits)
-    got, extra = _port_finish(tcurve, bits, pts, limbs, steps)
-    assert got == _ref_windows(rcurve, bits, pts, limbs)
+    got, extra = _port_finish(tcurve, bits, pts, limbs, steps, c, lanes)
+    assert got == _ref_windows(rcurve, bits, pts, limbs, c, lanes)
     return got, extra, rcurve, pts
 
 
@@ -193,6 +194,27 @@ def test_finish_flagged_infinity_rows():
     rng = np.random.default_rng(8)
     _toy_case([int(x) % rcurve.order for x in rng.integers(0, 1 << 62, 30)],
               pts=pts)
+
+
+@pytest.mark.parametrize("c", [9, 10])
+def test_finish_multi_block(c):
+    """c = 9, 10: 256 and 512 buckets a window, so K4's blocks of
+    FINISH_BLOCK = 128 buckets are 2 and 4 a window and the window combine
+    runs (the blocks' suffix scan and trees, log2(128) doublings), as at
+    the chains' c = 12 with 16.  Forty points each on the buckets either
+    side of every block edge give runs of several lanes there."""
+    rcurve, _, _, _ = _curves(FORMS[0])
+    B = 1 << (c - 1)
+    rng = np.random.default_rng(12)
+    hi = [int(x) << c for x in rng.integers(0, 1 << 20, 400)]
+    scalars = [int(x) % rcurve.order for x in rng.integers(0, 1 << 31, 120)]
+    edges = [b for k in range(1, B // 128) for b in (128 * k, 128 * k + 1)]
+    scalars += [(e + hi[i]) % rcurve.order
+                for i, e in enumerate(e for e in edges for _ in range(40))]
+    _, sched, _, _ = _toy_case(scalars, c=c, lanes=512)
+    assert sched.bidx.shape[1] == B and B // 128 > 1
+    lanes_at = [int(sched.runrem[0, sched.bidx[0, e - 1]]) for e in edges]
+    assert min(lanes_at) > 1
 
 
 @pytest.mark.parametrize("form", FORMS[:2], ids=IDS[:2])

@@ -115,6 +115,36 @@ def test_bucket_finish_matches_plain(form, cuda_device):
         assert ec.decode_point(g[w]) == ec.decode_point(old[w]), w
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_bucket_finish_multi_block(form, cuda_device):
+    """K4 at the chains' c = 12: 2048 buckets a window in 16 blocks, so
+    the window's last block combines the others.  Runs of several lanes
+    on both sides of a block edge (buckets 128 and 129)."""
+    cfg, curve, pts, xs, ys, inf = _table(form, 600, 9)
+    sctx = StreamMSMCtx(curve, cfg.Fr.BITS, c=12, lanes=1024)
+    ec = sctx.ec
+    table = sctx.table_from_limbs(xs, ys, inf, cuda_device)
+    rng = np.random.default_rng(10)
+    r = cfg.Fr.MODULUS
+    scalars = [int.from_bytes(rng.bytes(40), "little") % r
+               for _ in range(len(pts))]
+    for i in range(100, 300):
+        scalars[i] = (scalars[i] >> 12 << 12) + (128 if i < 200 else 129)
+    limbs = sctx.limb_rows(scalars, (cfg.Fr.BITS + 63) // 64 * 8)
+    sched = sctx.schedule_native(limbs)
+    assert int(sched.runrem[0, sched.bidx[0, 127]]) > 1
+    assert int(sched.runrem[0, sched.bidx[0, 128]]) > 1
+    perm, loads, bidx, runrem = sched.on(cuda_device)
+    accs = ec.madd_accumulate(table, perm, loads)
+    got = ec.bucket_finish(accs, bidx, runrem)
+    assert torch.equal(got, ec.bucket_finish_plain(accs, bidx, runrem))
+    old = sctx.finish_steps(accs, bidx, runrem, sched.maxrun).cpu().numpy()
+    g = got.cpu().numpy()
+    for w in range(sctx.nwin):
+        assert ec.decode_point(g[w]) == ec.decode_point(old[w]), w
+
+
 G1_FORMS = [f for f in FORMS if f[2] == "g1"] + [("toy_cycle", "help", "g1")]
 G1_IDS = ["-".join(f) for f in G1_FORMS]
 
