@@ -2,8 +2,9 @@
 """Drive pcd_tpu_torch on an NVIDIA card and hold its kernels to their
 plain versions.  Run from the root of a checkout with one CUDA card:
 
-    python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --phases 1,6   # a subset of 1, 2, 3, 4, 6
+    python3 chip_smoke.py                # phases 1-7
+    python3 chip_smoke.py --phases 1,6   # a subset of 1, 2, 3, 4, 6, 7
+    python3 chip_smoke.py --phases 8     # the real Marlin chain (hours)
 
 Phases, one output line each, then a `kernels` JSON line and the final
 status line:
@@ -39,7 +40,23 @@ status line:
      4 and 6, on that chain's inputs, and cannot be chosen alone;
   6  phases 4 and 5 for the real-cycle GM17 chain mnt4_gm17 and the
      mixed chains mnt4_mix_groth16_gm17 and mnt4_mix_gm17_groth16, each
-     at full width; K1 exactly once per commitment MSM of either SNARK.
+     at full width; K1 exactly once per commitment MSM of either SNARK;
+  7  the Marlin SNARK (KZG10 over the real curves, universal SRS) on
+     MNT4-298, the main side of mnt4_marlin, and MNT6-298, its help side,
+     on a squaring chain of 2^MARLIN_LOG_M constraints in place of the
+     PCD's verifier circuit: universal setup, index, a cold and a warm
+     prove, both verified; a wrong public input, a tampered sigma3 and a
+     tampered evaluation rejected; K1<1> and K4<1> exactly once per KZG
+     MSM of KZG10.STREAM_MIN scalars or more (the host Pippenger takes
+     only smaller ones), K2 and K3 never; one degree-bound shadow commit
+     against the C++ Pippenger on the same SRS rows; CUDA-event ms of
+     every launch of the warm prove, and K1 and K4 again, exactly against
+     their plain versions, on the inputs of the warm prove's first
+     round-1 commit and of its open3 MSM;
+  8  (only when asked for alone) the real mnt4_marlin PCD chain through
+     the universal setup (reference tests/mnt4_marlin.rs:141-204):
+     universal setup, index, base case, step 2, both verified, and the
+     negative check.  Hours of host work: never in the default run.
 Phase 1 always runs.  K2's and K3's records come from phase 2; their
 `launches` sum their launches over the chains run (null when none ran).  Any failure exits non-zero without the final
 line.  Nothing here imports JAX or the JAX package.
@@ -49,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import subprocess
 import sys
 import threading
@@ -73,6 +91,8 @@ K1_PER_PROVE = {"Groth16": {"g1": 4, "g2": 1}, "GM17": {"g1": 3, "g2": 1}}
 # the chains of phases 4 and 6 (pcd_tpu_torch.configs factories)
 CHAINS = {4: ("mnt4_groth16",),
           6: ("mnt4_gm17", "mnt4_mix_groth16_gm17", "mnt4_mix_gm17_groth16")}
+# phase 7's squaring chain: 2^MARLIN_LOG_M R1CS constraints
+MARLIN_LOG_M = 16
 
 # each port kernel and the Pallas call sites (pl.pallas_call lines) it
 # replaces: K4 took the finish's complete adds (sites 3-6) from K2, which
@@ -484,6 +504,7 @@ class LaunchProbe:
     def __init__(self):
         self.on = False
         self.first = {}      # (kernel, curve name) -> (ECCtx, args)
+        self.last = {}       # the same for the latest call (not K3's)
         self.finishes = []   # (StreamMSMCtx, args) of every finish
         self.firsts = []     # the first of them per curve
         self.events = []     # ((kernel or "finish", curve name), start, end)
@@ -527,6 +548,8 @@ class LaunchProbe:
                     kept = ((args[0].clone(),) + args[1:] if kernel == "madd"
                             else args)
                     self.first[key] = (ctx, kept)
+                if kernel != "madd":
+                    self.last[key] = (ctx, args)
                 return self._timed(key, fn, ctx, *args)
             return probed
 
@@ -696,7 +719,8 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None):
     return counts, probe
 
 
-def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
+def phase_path(results, probe, counts, name="mnt4_groth16", phase=5,
+               which="the warm step's first-launch inputs"):
     """Each kernel on the inputs of its first launch in the warm step of
     chain `name`, exactly against its plain version, timed with CUDA
     events (the plain version by its one call).  The records carry the
@@ -772,19 +796,310 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5):
         rec["name"] += tag
         rec["launches"] = counts.get((kernel, form), 0)
         results.append(rec)
-        say(phase, f"{kernel}[{form}]{tag} on the warm step's first-launch "
-                   f"inputs ({shape}): exact; {ms:.3f} ms, bound "
+        say(phase, f"{kernel}[{form}]{tag} on {which} ({shape}): exact; "
+                   f"{ms:.3f} ms, bound "
                    f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
                    f"{plain_ms:.0f} ms")
 
 
+class SquareChain:
+    """x (public) = a^(2^k): k witnesses squared in turn, k + 1 R1CS
+    constraints (phase 7's circuit)."""
+
+    def __init__(self, a, k):
+        self.a, self.k = a, k
+
+    def public(self, Fr):
+        return Fr.from_int(pow(self.a, 1 << self.k, Fr.MODULUS))
+
+    def generate_constraints(self, cs):
+        from pcd_tpu_torch.gadgets.fp import fpvar_class
+
+        V = fpvar_class(cs)
+        x = V.new_instance(pow(self.a, 1 << self.k, cs.p))
+        cur = V.new_witness(self.a)
+        for _ in range(self.k):
+            cur = cur * cur
+        cur.enforce_equal(x)
+
+
+class KZGProbe:
+    """While on, records every KZG10 MSM: ("stream", n, offset) for each
+    _stream_msm call that ran on the stream tier, ("host", n) for each
+    host MSM of the kzg module.  Leaving the `with` restores both."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from pcd_tpu_torch.snark.marlin import kzg
+
+        self._orig = (kzg.KZG10._stream_msm, kzg.msm_any)
+
+        def stream(obj, srs, offset, scalars):
+            out = self._orig[0](obj, srs, offset, scalars)
+            if out is not None:
+                n = scalars.shape[0] if hasattr(scalars, "shape") \
+                    else len(scalars)
+                self.calls.append(("stream", n, offset))
+            return out
+
+        def host(query, scalars):
+            self.calls.append(("host", len(scalars)))
+            return self._orig[1](query, scalars)
+
+        kzg.KZG10._stream_msm, kzg.msm_any = stream, host
+        return self
+
+    def __exit__(self, *exc):
+        from pcd_tpu_torch.snark.marlin import kzg
+
+        kzg.KZG10._stream_msm, kzg.msm_any = self._orig
+
+    def take(self):
+        out, self.calls = self.calls, []
+        return out
+
+
+def marlin_stage(what, calls, before, after, form, stream_min, most):
+    """Hold one stage's launches to its KZG MSMs: K1 and K4 of `form` once
+    per stream MSM, each of at least stream_min scalars, the host MSMs
+    all below it, no other launch.  Returns the number of stream MSMs."""
+    streamed = [c for c in calls if c[0] == "stream"]
+    hosted = [c for c in calls if c[0] == "host"]
+    if any(c[1] < stream_min for c in streamed) \
+            or any(c[1] >= stream_min for c in hosted):
+        raise AssertionError(f"{what}: an MSM on the wrong side of "
+                             f"STREAM_MIN {stream_min}: {calls}")
+    if len(streamed) > most:
+        raise AssertionError(f"{what}: {len(streamed)} stream MSMs, at "
+                             f"most {most} expected")
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    want = {(k, form): len(streamed) for k in ("madd_accumulate",
+                                                "bucket_finish")
+            if streamed}
+    if delta != want:
+        raise AssertionError(f"{what}: launches {delta}, expected {want} "
+                             f"(one K1 and one K4 per stream MSM)")
+    return len(streamed)
+
+
+def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
+    """The Marlin SNARK on both curves of the cycle (see the module
+    docstring, phase 7).  Appends the K1 and K4 records of the warm prove's
+    first round-1 commit ("@marlin") and of its open3 MSM
+    ("@marlin-open3"), their launches those of the warm prove."""
+    from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.snark.marlin.kzg import KZG10
+    from pcd_tpu_torch.snark.marlin.native import MarlinBound, MarlinSNARK
+    from pcd_tpu_torch.snark.msm_dispatch import host_query, msm_any, subrange
+    from pcd_tpu_torch.utils import profiling
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    cyc = M.mnt_cycle()
+    stream_min = KZG10.STREAM_MIN
+    for side, cfg in (("main", cyc.main), ("help", cyc.help)):
+        form = cfg.g1.name
+        snark = MarlinSNARK(cfg, dev)                  # None: the card
+        dev_ = snark.device
+        counter = ec.launch_counts if dev_.type == "cuda" \
+            else ec.plain_counts
+        Fr = cfg.Fr
+        circ = SquareChain(3, (1 << log_m) - 1)
+        x = circ.public(Fr)
+        rng = ChaChaRng(b"chip smoke marlin " + side.encode())
+        secs = {}
+        stages = {}
+        profiling.reset()
+        profiling.enable()
+        ec.reset_launch_counts()                   # the Marlin path starts
+        with KZGProbe() as kp:
+            t0 = time.perf_counter()
+            need = snark.circuit_degree(circ)
+            srs = snark.universal_setup(MarlinBound(need), rng)
+            secs["setup"] = time.perf_counter() - t0
+            before = counter()
+            t0 = time.perf_counter()
+            pk, vk = snark.index(srs, circ, rng)
+            sync(dev_)
+            secs["index"] = time.perf_counter() - t0
+            stages["index"] = marlin_stage("index", kp.take(), before,
+                                           counter(), form, stream_min, 9)
+            before = counter()
+            t0 = time.perf_counter()
+            proof_1 = snark.prove(pk, circ, rng)
+            sync(dev_)
+            secs["prove_cold"] = time.perf_counter() - t0
+            stages["prove_cold"] = marlin_stage(
+                "cold prove", kp.take(), before, counter(), form,
+                stream_min, 20)
+            spans_cold = profiling.totals()
+            profiling.reset()
+            ec.reset_launch_counts()               # the warm prove starts
+            with LaunchProbe() as probe:
+                probe.on = True
+                t0 = time.perf_counter()
+                proof_2 = snark.prove(pk, circ, rng)
+                sync(dev_)
+                secs["prove_warm"] = time.perf_counter() - t0
+                probe.on = False
+            warm = counter()                       # the warm prove ended
+            stages["prove_warm"] = marlin_stage(
+                "warm prove", kp.take(), {}, warm, form, stream_min, 20)
+            spans = {k: round(v[0], 3) for k, v in profiling.totals().items()
+                     if v[0] >= 0.05}
+            profiling.enable(False)
+            # one degree-bound shadow (offset > 0) through the stream tier
+            # against the C++ Pippenger on the same rows
+            D = srs.max_degree
+            n_s = stream_min + 16
+            bound = n_s + (D - n_s) // 2          # offset D - bound > 0
+            draw = random.Random(7)
+            coeffs = [draw.randrange(Fr.MODULUS) for _ in range(n_s)]
+            before = counter()
+            comm = snark.kzg.commit(srs, coeffs, degree_bound=bound)
+            marlin_stage("shadow commit", kp.take(), before, counter(),
+                         form, stream_min, 2)
+        table = host_query(srs, "powers_g1")
+        off = D - bound
+        if comm.c != msm_any(subrange(table, 0, n_s), coeffs) \
+                or comm.shifted != msm_any(subrange(table, off, off + n_s),
+                                           coeffs):
+            raise AssertionError(f"{form}: the stream tier's commit or its "
+                                 f"shadow at offset {off} != C++ Pippenger")
+        t0 = time.perf_counter()
+        ok = (snark.verify(vk, [x], proof_1), snark.verify(vk, [x], proof_2))
+        secs["verify_both"] = time.perf_counter() - t0
+        if not all(ok):
+            raise AssertionError(f"Marlin {side} proofs do not verify {ok}")
+        bad_sigma = proof_2.clone()
+        bad_sigma.sigma3 = (bad_sigma.sigma3 + 1) % Fr.MODULUS
+        bad_eval = proof_2.clone()
+        bad_eval.evals = dict(proof_2.evals)
+        bad_eval.evals["g_3A"] = (proof_2.evals["g_3A"] + 1) % Fr.MODULUS
+        t0 = time.perf_counter()
+        neg = (snark.verify(vk, [x + Fr.from_int(1)], proof_2),
+               snark.verify(vk, [x], bad_sigma),
+               snark.verify(vk, [x], bad_eval))
+        secs["negative_checks"] = time.perf_counter() - t0
+        if any(neg):
+            raise AssertionError(f"Marlin {side}: a negative check accepted "
+                                 f"(input, sigma3, evals): {neg}")
+        idx = pk.index
+        say(phase, f"Marlin {side} ({cfg.name}, {form}) on {dev_}: m = "
+                   f"{circ.k + 1} constraints, H = {idx.n}, K = "
+                   f"{idx.k_size}, D = {D}; "
+                   + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+                   + "; both proofs verify, the wrong input, sigma3 and "
+                     "evaluation reject; the shadow commit at offset "
+                     f"{off} == C++ Pippenger")
+        say(phase, f"stream MSMs (K1 and K4 once each, STREAM_MIN "
+                   f"{stream_min}): " + json.dumps(stages))
+        say(phase, "cold prove spans (s): " + json.dumps(
+            {k: round(v[0], 3) for k, v in spans_cold.items()
+             if v[0] >= 0.05}))
+        say(phase, "warm prove spans (s): " + json.dumps(spans))
+        dms = probe.device_ms()
+        kern = {key: v for key, v in dms.items() if key[0] != "finish"}
+        say(phase, "kernel device ms per warm prove (CUDA events): "
+                   + json.dumps({f"{k}[{f}]": round(v, 3)
+                                 for (k, f), v in sorted(kern.items())})
+            + f"; all kernels {sum(kern.values()):.1f} ms of the "
+              f"{secs['prove_warm'] * 1e3:.0f} ms prove")
+        if not stages["prove_warm"]:
+            continue
+        # K1 and K4 on the first round-1 commit's and open3's inputs
+        phase_path(results, probe, warm, "marlin", phase,
+                   "the warm prove's first stream MSM's inputs")
+        open3 = ProbeInputs({k: v for k, v in probe.last.items()
+                             if k[1] == form}, probe.finishes[-1:])
+        phase_path(results, open3, warm, "marlin-open3", phase,
+                   "the warm prove's open3 MSM's inputs")
+        probe.finishes.clear()
+
+
+class ProbeInputs:
+    """Kernel inputs for phase_path, as a LaunchProbe holds them: `first`
+    {(kernel, curve name): (ECCtx, args)} and `firsts` [(StreamMSMCtx,
+    finish args)]."""
+
+    def __init__(self, first, firsts):
+        self.first, self.firsts = first, firsts
+
+
+def phase_marlin_chain(dev=None, phase=8):
+    """The real mnt4_marlin PCD chain through the universal setup
+    (reference tests/mnt4_marlin.rs:141-204); K1 and K4 must run on both
+    curves' G1, no kernel on G2 (Marlin has no G2 MSM)."""
+    from pcd_tpu_torch import configs
+    from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.pcd.api import FpPredicate
+    from pcd_tpu_torch.snark.marlin.native import MarlinBound
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    class Counter(FpPredicate):
+        PRIOR_MSG_LEN = 1
+
+        def generate_constraints(self, cs, msg, wit, priors, base):
+            (priors[0] + wit).enforce_equal(msg)
+
+    secs = {}
+    pcd = configs.mnt4_marlin(dev)
+    dev = pcd.ic.main_snark.device
+    counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
+    F = pcd.ic.main_field
+    pred = Counter(F)
+    rng = ChaChaRng(b"chip smoke mnt4_marlin")
+    ec.reset_launch_counts()                       # the Marlin chain starts
+    t0 = time.perf_counter()
+    pp = pcd.universal_setup(MarlinBound(max_degree=16), rng)
+    secs["universal_setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pk, vk = pcd.index(pp, pred, rng)
+    secs["index"] = time.perf_counter() - t0
+    one, two = F.from_int(1), F.from_int(2)
+    t0 = time.perf_counter()
+    p1 = pcd.prove(pk, pred, one, one, [], [], rng)
+    sync(dev)
+    secs["prove_base"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2 = pcd.prove(pk, pred, two, one, [one], [p1], rng)
+    sync(dev)
+    secs["prove_step2"] = time.perf_counter() - t0
+    counts = counter()                             # the chain ended
+    t0 = time.perf_counter()
+    ok = (pcd.verify(vk, pred, one, p1), pcd.verify(vk, pred, two, p2))
+    secs["verify_both"] = time.perf_counter() - t0
+    if not all(ok):
+        raise AssertionError(f"mnt4_marlin chain proofs do not verify {ok}")
+    if pcd.verify(vk, pred, one, p2):
+        raise AssertionError("mnt4_marlin: negative check accepted an old "
+                             "message")
+    cyc = pcd.ic.cycle
+    for c in (cyc.main.g1, cyc.help.g1):
+        for k in ("madd_accumulate", "bucket_finish"):
+            if counts.get((k, c.name), 0) <= 0:
+                raise AssertionError(f"{k}[{c.name}] not launched on the "
+                                     f"mnt4_marlin chain")
+    for c in (cyc.main.g2, cyc.help.g2):
+        if any(f == c.name for _, f in counts):
+            raise AssertionError(f"a kernel launched on {c.name}")
+    say(phase, "mnt4_marlin chain (universal setup) on "
+               f"{dev}: " + ", ".join(f"{k} {v:.1f}s"
+                                      for k, v in secs.items())
+        + "; base and step 2 verify, negative check rejects; launches "
+        + json.dumps({f"{k}[{f}]": v for (k, f), v in sorted(counts.items())}))
+
+
 def main(argv):
-    phases = {1, 2, 3, 4, 6}
+    phases = {1, 2, 3, 4, 6, 7}
     if "--phases" in argv:
         asked = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
-        if asked - phases:
-            print(f"chip_smoke: no phase {sorted(asked - phases)} to choose "
-                  f"(phases: 1, 2, 3, 4, 6; 5 runs with 4 and 6)",
+        if asked - phases - {8} or (8 in asked and asked - {1, 8}):
+            print(f"chip_smoke: phases to choose: 1, 2, 3, 4, 6, 7, or 8 "
+                  f"alone (5 runs with 4 and 6); asked {sorted(asked)}",
                   file=sys.stderr)
             return 2
         phases = asked | {1}
@@ -814,6 +1129,13 @@ def main(argv):
             phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
             say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
                     f"first-launch kernel checks")
+    if 7 in phases:
+        t0 = time.perf_counter()
+        phase_marlin(results)
+        say(7, f"Marlin on both curves: {time.perf_counter() - t0:.1f}s "
+               f"with its kernel checks")
+    if 8 in phases:
+        phase_marlin_chain()
     for rec in k3:                 # K2's, K3's launches on the chains run
         kernel, form = rec["name"][:-1].split("[")
         rec["launches"] = (sum(c.get((kernel, form), 0)

@@ -1,7 +1,8 @@
-"""Named PCD configurations of the port: the Groth16, GM17 and mixed
-factories of `pcd_tpu/configs.py` (the reference's PCDGroth16Mnt4,
-tests/mnt4_groth16.rs:22-30, PCDGm17Mnt4, tests/mnt4_gm17.rs:23-31, the
-mixed tests/mnt4_mix_*.rs:24-32, and their toy-cycle twins).  Each takes
+"""Named PCD configurations of the port: the Groth16, GM17, mixed and
+Marlin factories of `pcd_tpu/configs.py` (the reference's
+PCDGroth16Mnt4, tests/mnt4_groth16.rs:22-30, PCDGm17Mnt4,
+tests/mnt4_gm17.rs:23-31, the mixed tests/mnt4_mix_*.rs:24-32, PCDMarlin,
+tests/mnt4_marlin.rs:68-94, and their toy-cycle twins).  Each takes
 the device its provers' commitment MSMs run on: None means the card.
 """
 
@@ -17,10 +18,13 @@ from .snark.gm17.gadget import GM17VerifierGadget
 from .snark.gm17.native import GM17
 from .snark.groth16.gadget import Groth16VerifierGadget
 from .snark.groth16.native import Groth16
+from .snark.marlin.gadget import MarlinVerifierGadget
+from .snark.marlin.native import MarlinSNARK
 
 # SNARK kind -> (prover, verifier gadget)
 _SNARKS = {"groth16": (Groth16, Groth16VerifierGadget),
-           "gm17": (GM17, GM17VerifierGadget)}
+           "gm17": (GM17, GM17VerifierGadget),
+           "marlin": (MarlinSNARK, MarlinVerifierGadget)}
 
 
 def _config(cycle, main_kind: str, help_kind: str,
@@ -86,3 +90,15 @@ def mnt4_mix_gm17_groth16(device=None) -> ECCyclePCD:
     """Reference tests/mnt4_mix_gm17groth16.rs:24-32: GM17<MNT4-298> main
     / Groth16<MNT6-298> help."""
     return _pcd("mnt", "gm17", "groth16", resolve_device(device))
+
+
+def toy_marlin(device=None) -> ECCyclePCD:
+    """Toy-cycle Marlin PCD."""
+    return _pcd("toy", "marlin", "marlin", resolve_device(device))
+
+
+def mnt4_marlin(device=None) -> ECCyclePCD:
+    """The reference's PCDMarlin (tests/mnt4_marlin.rs:68-94): Marlin +
+    KZG10 on both sides of the cycle, Poseidon Fiat-Shamir, universal
+    setup."""
+    return _pcd("mnt", "marlin", "marlin", resolve_device(device))

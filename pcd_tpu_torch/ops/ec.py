@@ -245,14 +245,22 @@ class ECCtx:
         return tuple(torch.where(act, a, b) for a, b in zip(new, acc))
 
     def madd_accumulate_plain(self, table, perm, loads):
-        """Plain version of K1 (see madd_accumulate)."""
+        """Plain version of K1 (see madd_accumulate).  Round t computes
+        only the lanes still folding (loads > t); the others keep their
+        accumulator, as the kernel's do."""
         nwin, T, L = perm.shape
         acc = self._split(self.identity((nwin * L,), table.device))
         lds = loads.reshape(-1)
         for t in range(T):
-            v = perm[:, t, :].reshape(-1).to(torch.int64) & 0xFFFFFFFF
-            acc = self._madd_round(acc, table[v & 0x7FFFFFFF],   # a copy
-                                   (v >> 31) == 1, lds > t)
+            live = torch.nonzero(lds > t).flatten()
+            if not live.numel():
+                break
+            v = (perm[:, t, :].reshape(-1)[live].to(torch.int64)
+                 & 0xFFFFFFFF)
+            rows = table[v & 0x7FFFFFFF]                         # a copy
+            every = torch.ones_like(live, dtype=torch.bool)
+            self._put(acc, live, self._madd_round(
+                self._take(acc, live), rows, (v >> 31) == 1, every))
         return self._join(*acc).reshape(nwin, L, 3, self.d, NLIMB)
 
     def madd_plain(self, acc, q, sign, active):

@@ -1,10 +1,11 @@
-"""MSM helpers shared by the port's Groth16 and GM17 provers: the
+"""MSM helpers shared by the port's Groth16, GM17 and KZG10 provers: the
 counterpart of `pcd_tpu/snark/msm_dispatch.py`, keeping its host-table
-marshalling, the host half of `msm_any` and its stream half (lines
-142-286 there).  `stream_launch`, `zpad_query` and `side_stream` hold
-the dispatch that the reference's two provers each write inline.  The
-device-resident legacy tier (DevicePointVec, the scan MSM, device
-fixed-base) and the device-side scheduler are not ported.
+marshalling, the host halves of `fb_mul` and `msm_any`, `subrange` and
+its stream half (lines 142-286 there).  `stream_launch`, `zpad_query`
+and `side_stream` hold the dispatch that the reference's Groth16 and
+GM17 provers each write inline.  The device-resident legacy tier
+(DevicePointVec, the scan MSM, device fixed-base) and the device-side
+scheduler are not ported.
 
 The stream tier runs on the device the prover was built for: on a CUDA
 device the kernels of ops/ec.py, on the CPU their plain versions.  Work is
@@ -49,6 +50,39 @@ def host_query(owner, name: str):
         enc = encode_query(q)
         cache[name] = enc
     return enc
+
+
+def fb_mul(cfg, which: str, scalars, scalar_bits: int):
+    """[s_i] G for G = cfg's G1 ("g1") or G2 ("g2") generator on the host:
+    the C++ windowed fixed-base from 64 scalars up where it takes the
+    curve, else a FixedBaseTable cached on cfg (the host half of the
+    reference's fb_mul, msm_dispatch.py:36-61)."""
+    from ..msm.host import (FixedBaseTable, _native, _native_curve_ok,
+                            fixed_base_many)
+
+    curve = cfg.g1 if which == "g1" else cfg.g2
+    base = cfg.g1_gen if which == "g1" else cfg.g2_gen
+    if len(scalars) >= 64 and _native_curve_ok(curve) \
+            and _native() is not None:
+        return fixed_base_many(base, scalars, scalar_bits)
+    key = ("_fbt_" + which, scalar_bits)
+    tbl = getattr(cfg, "_fb_cache", None)
+    if tbl is None:
+        tbl = {}
+        object.__setattr__(cfg, "_fb_cache", tbl)
+    if key not in tbl:
+        tbl[key] = FixedBaseTable(base, scalar_bits, window=8)
+    return [tbl[key].mul(int(s)) for s in scalars]
+
+
+def subrange(query, start: int, stop=None):
+    """Rows [start, stop) of a host point list or an EncodedPoints table
+    (a zero-copy view)."""
+    from ..native import EncodedPoints
+
+    if isinstance(query, EncodedPoints):
+        return query.slice(start, len(query) if stop is None else stop)
+    return query[start:stop]
 
 
 def msm_any(query, scalars):
@@ -142,10 +176,16 @@ def stream_table(pk, nm: str, curve, scalar_bits: int, device):
 
 
 def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
-                     device, sched_cache=None):
+                     device, sched_cache=None, offset=None):
     """Enqueue one query MSM on the stream tier without waiting; returns
     a future for stream_collect.  scal_limbs: (n, NL) u64 canonical limbs
     (truncated to the table length; fewer scalars than points raises).
+
+    offset: an MSM over the rows [offset, offset + n) of the table only,
+    n the number of scalars (KZG's commits and opens over a prefix or a
+    degree-bound shift of the SRS powers).  The rows are a contiguous
+    view of the device table, which K1 gathers from by index, and only
+    the n scalars are scheduled.
 
     sched_cache: optional per-prove dict.  The tables flag their
     infinities in-row, so a schedule depends only on the scalars, and the
@@ -155,10 +195,19 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
     right only while every caller passes the same z)."""
     sctx, table, _ = stream_table(pk, nm, curve, scalar_bits, device)
     qn = len(getattr(pk, nm))
-    sl = np.ascontiguousarray(scal_limbs[:qn])
-    if sl.shape[0] != qn:
-        raise ValueError(f"stream MSM {nm}: {sl.shape[0]} scalars for "
-                         f"{qn} points")
+    if offset is None:
+        sl = np.ascontiguousarray(scal_limbs[:qn])
+        if sl.shape[0] != qn:
+            raise ValueError(f"stream MSM {nm}: {sl.shape[0]} scalars for "
+                             f"{qn} points")
+    else:
+        sl = np.ascontiguousarray(scal_limbs)
+        qn = sl.shape[0]
+        if offset < 0 or offset + qn > table.shape[0]:
+            raise ValueError(f"stream MSM {nm}: rows [{offset}, "
+                             f"{offset + qn}) outside its "
+                             f"{table.shape[0]} points")
+        table = table[offset:offset + qn]
     sched = None
     key = None
     if sched_cache is not None:

@@ -1,12 +1,11 @@
 """Canonical serialization for proofs, verifying keys and proving-key
-checkpoints: the port's copy of `pcd_tpu/utils/serialize.py`, cut to the
-Groth16 and GM17 cycle configs the port runs (the Marlin and
-ark-serialize compat layouts stay in the JAX package until those slices
-are ported).  The proof and vk layouts and the Groth16 pk checkpoint are
-identical, so a blob written by either package reads in the other
-(pcd_tpu_torch/convert.py relies on this).  The JAX package checkpoints
-Groth16 pks only; the GM17 pk layout and PCD pks of GM17 and mixed
-configs are the port's own, in the same shape.
+checkpoints: the port's copy of `pcd_tpu/utils/serialize.py` for the
+Groth16, GM17 and Marlin cycle configs (the ark-serialize compat layout
+stays in the JAX package).  The proof and vk layouts and the Groth16 pk
+checkpoint are identical, so a blob written by either package reads in
+the other (pcd_tpu_torch/convert.py relies on this).  The JAX package
+checkpoints Groth16 pks only; the GM17 and Marlin pk layouts and PCD pks
+of the other configs are the port's own, in the same shape.
 
 Layouts (little-endian; field elements use the canonical 8*ceil(bits/64)
 byte layout of fields/prime.py):
@@ -166,6 +165,74 @@ def gm17_vk_from_bytes(cfg, data: bytes):
                   delta_g2=d2, query=q)
 
 
+# ---------------------------------------------------------------- Marlin
+def _marlin_orders():
+    from ..snark.marlin.native import _B1_POLYS, _B3_POLYS
+
+    from ..snark.marlin.native import _R1_COMMS
+
+    evs = list(_B1_POLYS) + list(_B3_POLYS) + [f"sigma_{n}" for n in "ABC"]
+    comm1 = sorted(_R1_COMMS)
+    comm3 = [f"g_3{n}" for n in "ABC"] + [f"h_3{n}" for n in "ABC"]
+    return evs, comm1, comm3
+
+
+def marlin_proof_to_bytes(proof, Fr) -> bytes:
+    evs, comm1, comm3 = _marlin_orders()
+    out = []
+    for nm in sorted(comm1):
+        _write_point(out, proof.comms1[nm].c)
+    for nm in ("g_1", "h_1"):
+        _write_point(out, proof.comms2[nm].c)
+    _write_point(out, proof.comms2["g_1"].shifted)
+    for nm in sorted(comm3):
+        _write_point(out, proof.comms3[nm].c)
+    for nm in [f"g_3{n}" for n in "ABC"]:
+        _write_point(out, proof.comms3[nm].shifted)
+    out.append(Fr.from_int(proof.sigma3).to_bytes())
+    for nm in evs:
+        out.append(Fr.from_int(proof.evals[nm]).to_bytes())
+    _write_point(out, proof.pi1)
+    _write_point(out, proof.pi3)
+    return b"".join(out)
+
+
+def marlin_proof_from_bytes(cfg, data: bytes):
+    from ..snark.marlin.kzg import KZGCommitment
+    from ..snark.marlin.native import MarlinProof
+
+    Fr = cfg.Fr
+    evs, comm1, comm3 = _marlin_orders()
+    off = 0
+    comms1 = {}
+    for nm in sorted(comm1):
+        p, off = _read_point(cfg.g1, data, off)
+        comms1[nm] = KZGCommitment(c=p)
+    g1c, off = _read_point(cfg.g1, data, off)
+    h1c, off = _read_point(cfg.g1, data, off)
+    g1s, off = _read_point(cfg.g1, data, off)
+    comms2 = {"g_1": KZGCommitment(c=g1c, shifted=g1s),
+              "h_1": KZGCommitment(c=h1c)}
+    c3 = {}
+    for nm in sorted(comm3):
+        p, off = _read_point(cfg.g1, data, off)
+        c3[nm] = KZGCommitment(c=p)
+    for nm in [f"g_3{n}" for n in "ABC"]:
+        p, off = _read_point(cfg.g1, data, off)
+        c3[nm] = KZGCommitment(c=c3[nm].c, shifted=p)
+    nb = Fr.BYTES
+    sigma3 = Fr.from_bytes(bytes(data[off : off + nb])).n
+    off += nb
+    evals = {}
+    for nm in evs:
+        evals[nm] = Fr.from_bytes(bytes(data[off : off + nb])).n
+        off += nb
+    pi1, off = _read_point(cfg.g1, data, off)
+    pi3, off = _read_point(cfg.g1, data, off)
+    return MarlinProof(comms1=comms1, comms2=comms2, comms3=c3,
+                       sigma3=sigma3, evals=evals, pi1=pi1, pi3=pi3)
+
+
 # ---------------------------------------------------------------- PCD level
 def pcd_proof_to_bytes(pcd, proof) -> bytes:
     """Serialize a PCD proof (= the help SNARK's proof)."""
@@ -174,6 +241,8 @@ def pcd_proof_to_bytes(pcd, proof) -> bytes:
         return b"G16" + groth16_proof_to_bytes(proof)
     if name == "GM17Proof":
         return b"GM7" + gm17_proof_to_bytes(proof)
+    if name == "MarlinProof":
+        return b"MRL" + marlin_proof_to_bytes(proof, pcd.ic.cycle.help.Fr)
     raise TypeError(name)
 
 
@@ -184,7 +253,41 @@ def pcd_proof_from_bytes(pcd, data: bytes):
         return groth16_proof_from_bytes(help_cfg, body)
     if tag == b"GM7":
         return gm17_proof_from_bytes(help_cfg, body)
+    if tag == b"MRL":
+        return marlin_proof_from_bytes(help_cfg, body)
     raise ValueError(f"unknown proof tag {tag!r}")
+
+
+def marlin_vk_to_bytes(vk) -> bytes:
+    out = []
+    for nm in sorted(vk.index_comms):
+        _write_point(out, vk.index_comms[nm].c)
+    _write_point(out, vk.srs_h)
+    _write_point(out, vk.srs_tau_h)
+    _write_point(out, vk.srs_g)
+    out.append(struct.pack("<5Q", vk.n, vk.k_size, vk.input_size,
+                           vk.num_instance, vk.max_degree))
+    return b"".join(out)
+
+
+def marlin_vk_from_bytes(cfg, data: bytes):
+    from ..snark.marlin.kzg import KZGCommitment
+    from ..snark.marlin.native import MarlinIndexVK
+
+    names = sorted([f"{kind}_{m}" for kind in ("row", "col", "val")
+                    for m in "ABC"])
+    off = 0
+    comms = {}
+    for nm in names:
+        p, off = _read_point(cfg.g1, data, off)
+        comms[nm] = KZGCommitment(c=p)
+    h, off = _read_point(cfg.g2, data, off)
+    tau_h, off = _read_point(cfg.g2, data, off)
+    g, off = _read_point(cfg.g1, data, off)
+    n, k, hx, ninst, d = struct.unpack_from("<5Q", data, off)
+    return MarlinIndexVK(index_comms=comms, n=n, k_size=k, input_size=hx,
+                         num_instance=ninst, srs_h=h, srs_tau_h=tau_h,
+                         srs_g=g, max_degree=d)
 
 
 _SCHEME_SERIALIZERS = {
@@ -192,15 +295,17 @@ _SCHEME_SERIALIZERS = {
                 groth16_proof_to_bytes, groth16_proof_from_bytes),
     "GM17": (gm17_vk_to_bytes, gm17_vk_from_bytes,
              gm17_proof_to_bytes, gm17_proof_from_bytes),
+    # a Marlin proof's writer needs Fr: snark_proof_to_bytes passes it
+    "MarlinSNARK": (marlin_vk_to_bytes, marlin_vk_from_bytes,
+                    None, marlin_proof_from_bytes),
 }
 
 
 def _scheme(snark, table=_SCHEME_SERIALIZERS):
-    """The serializers in `table` of a Groth16 or GM17 SNARK (the schemes
-    ported)."""
+    """The serializers in `table` of a Groth16, GM17 or Marlin SNARK."""
     name = type(snark).__name__
     if name not in table:
-        raise TypeError(f"{name}: only Groth16 and GM17 are ported")
+        raise TypeError(f"{name}: no serializer")
     return table[name]
 
 
@@ -213,6 +318,8 @@ def snark_vk_from_bytes(snark, data: bytes):
 
 
 def snark_proof_to_bytes(snark, proof) -> bytes:
+    if type(snark).__name__ == "MarlinSNARK":
+        return marlin_proof_to_bytes(proof, snark.cfg.Fr)
     return _scheme(snark)[2](proof)
 
 
@@ -333,20 +440,125 @@ def gm17_pk_from_bytes(cfg, data: bytes):
                   num_instance=n_inst, num_vars=n_vars, domain_size=dom)
 
 
-_PK_SERIALIZERS = {"Groth16": (groth16_pk_to_bytes, groth16_pk_from_bytes),
-                   "GM17": (gm17_pk_to_bytes, gm17_pk_from_bytes)}
+def _write_frs(out, Fr, vals):
+    out.append(struct.pack("<Q", len(vals)))
+    out.append(b"".join(int(v).to_bytes(Fr.BYTES, "little") for v in vals))
+
+
+def _read_frs(Fr, buf, off):
+    (n,) = struct.unpack_from("<Q", buf, off)
+    off += 8
+    nb = Fr.BYTES
+    vals = [Fr.from_bytes(bytes(buf[off + i * nb:off + (i + 1) * nb])).n
+            for i in range(n)]
+    return vals, off + n * nb
+
+
+_MARLIN_VECS = ("row", "col", "val", "row_evals", "col_evals", "val_evals")
+
+
+def marlin_pk_to_bytes(cfg, pk) -> bytes:
+    """The port's Marlin pk checkpoint: u64 vk length and the vk; the
+    index: u64 n, k_size, input_size, num_instance and num_vars, the
+    u64-counted u32 col_map, then per matrix A, B, C its index
+    polynomials and evaluations (row, col, val, row_evals, col_evals,
+    val_evals) as u64-counted Fr lists and its u64-counted entries (u32
+    row, u32 col, Fr value); then the SRS: the u64-length-prefixed powers
+    query, H, tau H and u64 max_degree.  An Fr element is its canonical
+    little-endian Fr.BYTES."""
+    Fr = cfg.Fr
+    vk_b = marlin_vk_to_bytes(pk.vk)
+    out = [struct.pack("<Q", len(vk_b)), vk_b]
+    idx = pk.index
+    out.append(struct.pack("<5Q", idx.n, idx.k_size, idx.input_size,
+                           idx.num_instance, idx.num_vars))
+    out.append(struct.pack(f"<Q{len(idx.col_map)}I", len(idx.col_map),
+                           *idx.col_map))
+    for name in "ABC":
+        m = idx.mats[name]
+        for vec in _MARLIN_VECS:
+            _write_frs(out, Fr, getattr(m, vec))
+        entries = idx.rows_cols_vals[name]
+        out.append(struct.pack("<Q", len(entries)))
+        out.append(b"".join(struct.pack("<II", r, c)
+                            + int(v).to_bytes(Fr.BYTES, "little")
+                            for r, c, v in entries))
+    srs = pk.srs
+    qo = []
+    _write_query(qo, srs.powers_g1)
+    blob = b"".join(qo)
+    out += [struct.pack("<Q", len(blob)), blob]
+    _write_point(out, srs.h)
+    _write_point(out, srs.tau_h)
+    out.append(struct.pack("<Q", srs.max_degree))
+    return b"".join(out)
+
+
+def marlin_pk_from_bytes(cfg, data: bytes):
+    from ..snark.marlin.ahp import AHPIndex, MatrixArith
+    from ..snark.marlin.kzg import KZGSRS
+    from ..snark.marlin.native import MarlinIndexPK
+
+    Fr = cfg.Fr
+    (vk_len,) = struct.unpack_from("<Q", data, 0)
+    off = 8
+    vk = marlin_vk_from_bytes(cfg, data[off:off + vk_len])
+    off += vk_len
+    n, k_size, hx, n_inst, n_vars = struct.unpack_from("<5Q", data, off)
+    off += 40
+    (ncol,) = struct.unpack_from("<Q", data, off)
+    col_map = list(struct.unpack_from(f"<{ncol}I", data, off + 8))
+    off += 8 + 4 * ncol
+    mats, raw = {}, {}
+    for name in "ABC":
+        vecs = []
+        for _ in _MARLIN_VECS:
+            v, off = _read_frs(Fr, data, off)
+            vecs.append(v)
+        mats[name] = MatrixArith(*vecs)
+        (ne,) = struct.unpack_from("<Q", data, off)
+        off += 8
+        entries = []
+        for _ in range(ne):
+            r, c = struct.unpack_from("<II", data, off)
+            v = Fr.from_bytes(bytes(data[off + 8:off + 8 + Fr.BYTES])).n
+            entries.append((r, c, v))
+            off += 8 + Fr.BYTES
+        raw[name] = entries
+    index = AHPIndex(n=n, k_size=k_size, input_size=hx, num_instance=n_inst,
+                     num_vars=n_vars, col_map=col_map, mats=mats,
+                     rows_cols_vals=raw)
+    (blen,) = struct.unpack_from("<Q", data, off)
+    off += 8
+    powers, _ = _read_query(cfg.g1, data[off:off + blen], 0)
+    off += blen
+    h, off = _read_point(cfg.g2, data, off)
+    tau_h, off = _read_point(cfg.g2, data, off)
+    (max_degree,) = struct.unpack_from("<Q", data, off)
+    srs = KZGSRS(powers_g1=powers, shifted_g1={}, h=h, tau_h=tau_h,
+                 max_degree=max_degree)
+    return MarlinIndexPK(vk=vk, index=index, srs=srs)
+
+
+# SNARK class name -> (pk writer (cfg, pk), pk reader (cfg, data))
+_PK_SERIALIZERS = {
+    "Groth16": (lambda cfg, pk: groth16_pk_to_bytes(pk),
+                groth16_pk_from_bytes),
+    "GM17": (lambda cfg, pk: gm17_pk_to_bytes(pk), gm17_pk_from_bytes),
+    "MarlinSNARK": (marlin_pk_to_bytes, marlin_pk_from_bytes),
+}
 
 
 def pcd_pk_to_bytes(pcd, pk) -> bytes:
-    """ECCyclePCDPK checkpoint, any mix of Groth16 and GM17: u32 CRH-seed
-    length and the seed, then the main pk, the help pk and the help vk,
-    each u64-length-prefixed in its SNARK's layout.  For Groth16/Groth16
-    the bytes are the JAX package's."""
+    """ECCyclePCDPK checkpoint, any mix of Groth16 and GM17, or Marlin: u32
+    CRH-seed length and the seed, then the main pk, the help pk and the
+    help vk, each u64-length-prefixed in its SNARK's layout.  For
+    Groth16/Groth16 the bytes are the JAX package's."""
     ic = pcd.ic
     main_to, _ = _scheme(ic.main_snark, _PK_SERIALIZERS)
     help_to, _ = _scheme(ic.help_snark, _PK_SERIALIZERS)
-    main_b = main_to(pk.main_pk)
-    help_b = help_to(pk.help_pk)
+    main_b = main_to(ic.cycle.main, pk.main_pk)
+    help_b = help_to(ic.cycle.help, pk.help_pk)
     help_vk_b = snark_vk_to_bytes(ic.help_snark, pk.help_vk)
     out = [struct.pack("<I", len(pk.crh_pp.seed)), pk.crh_pp.seed]
     for blob in (main_b, help_b, help_vk_b):

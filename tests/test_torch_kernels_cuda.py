@@ -199,3 +199,36 @@ def test_madd_equals_k1_at_t1(form, cuda_device):
     k1 = ec.madd_accumulate(table, torch.from_numpy(perm.reshape(1, 1, n))
                             .to(cuda_device), active.reshape(1, n))
     assert torch.equal(k1.reshape(got.shape), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cyc", ["toy_cycle", "mnt_cycle"])
+def test_kzg_stream_at_offset_on_card(cyc, cuda_device):
+    """KZG10's stream MSM over rows [offset, offset + n) of an SRS table
+    on the card, at the card's windows and lanes: the commit and its
+    degree-bound shadow equal the C++ Pippenger on the same rows, one K1
+    and one K4 launch each."""
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.snark.marlin.kzg import KZG10
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    cfg = getattr(M, cyc)().main
+    kzg = KZG10(cfg, device="cuda")
+    srs = kzg.setup(3000, ChaChaRng(b"kzg on card"))
+    rng = np.random.default_rng(8)
+    coeffs = [int.from_bytes(rng.bytes(40), "little") % cfg.Fr.MODULUS
+              for _ in range(2000)]
+    keys = [(k, cfg.g1.name) for k in ("madd_accumulate", "bucket_finish")]
+    before = [launch_counts().get(k, 0) for k in keys]
+    old = KZG10.STREAM_MIN
+    KZG10.STREAM_MIN = 1000
+    try:
+        comm = kzg.commit(srs, coeffs, degree_bound=2500)
+    finally:
+        KZG10.STREAM_MIN = old
+    assert [launch_counts().get(k, 0) for k in keys] == [b + 2
+                                                         for b in before]
+    powers = msm_dispatch.host_query(srs, "powers_g1")
+    off = 3000 - 2500
+    assert comm.c == host_msm(powers.slice(0, 2000), coeffs)
+    assert comm.shifted == host_msm(powers.slice(off, off + 2000), coeffs)
