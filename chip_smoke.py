@@ -2,15 +2,16 @@
 """Drive pcd_tpu_torch on an NVIDIA card and hold its kernels to their
 plain versions.  Run from the root of a checkout with one CUDA card:
 
-    python3 chip_smoke.py                # phases 1-7
-    python3 chip_smoke.py --phases 1,6   # a subset of 1, 2, 3, 4, 6, 7
+    python3 chip_smoke.py                # phases 1-7 and 9
+    python3 chip_smoke.py --phases 1,6   # a subset of 1, 2, 3, 4, 6, 7, 9
     python3 chip_smoke.py --phases 8     # the real Marlin chain (hours)
 
 Phases, one output line each, then a `kernels` JSON line and the final
 status line:
   1  card and build: nvidia-smi's name and power limit; the C++ host tier
-     (g++) and the CUDA kernels (one nvcc per source) built in parallel
-     from the checkout, with ptxas' register and spill report;
+     (g++) and the CUDA kernels (one nvcc per source, sched_digits too)
+     built in parallel from the checkout, with ptxas' register and spill
+     report;
   2  every kernel against its plain torch version on the card, for the
      four field forms of the main path (MNT4/MNT6 G1 over Fq, MNT4 G2 over
      Fq2, MNT6 G2 over Fq3): K1 on 25 windows x 8192 lanes, T = 8, with
@@ -32,7 +33,16 @@ status line:
      once per commitment MSM, K4 once per commitment MSM, K2 never;
      CUDA-event device time of every launch of the warm step, of the
      whole finish (StreamMSMCtx._finish), and of the warm step's finishes
-     replayed through K4 and through finish_steps in turns;
+     replayed through K4 and through finish_steps in turns; then ten more
+     warm steps, the scheduler (msm_dispatch.SCHEDULER) in five adjacent
+     host/device pairs, alternating which runs first, each step with K1
+     and K4 exactly once per commitment MSM (sched_digits twice a prove
+     under "device"), the last proof of each verified; per scheduler the
+     medians and ranges of the step, stream_dispatch, stream_dispatch_h,
+     the MSM collect (groth16/msm) and the schedule spans, and the
+     verdict that sets the default: "device" when its step is shorter in
+     at least nine tenths of the pairs and its median shorter than the
+     host's by more than the host steps' interquartile distance;
   5  each kernel again on the inputs of its first launch in the warm step
      (K1 and K4: the a-query or b_g2 MSM), exactly against its plain
      version, with CUDA-event times, K4 beside finish_steps on the same
@@ -53,13 +63,28 @@ status line:
      every launch of the warm prove, and K1 and K4 again, exactly against
      their plain versions, on the inputs of the warm prove's first
      round-1 commit and of its open3 MSM;
+  9  the device scheduler (ops/msm_stream_dev.py) at c = 12, L = 8192:
+     a 2^18-point MNT4 G1 MSM and a 2^16-point MNT4 G2 MSM, dense and
+     low-entropy scalars (digits in two windows only), each equal to the
+     C++ Pippenger with K1, K4 and sched_digits launched once; the G1
+     schedules equal the host placement law (the numpy schedule at the
+     device's T) and the low-entropy ones leave the empty windows out;
+     sched_digits exactly against its plain version on the dense
+     scalars; the schedule's CUDA-event ms (upload to placement, the
+     histogram fetch included) against the C++ schedule's wall ms, in
+     turns, with the digits, sort and placement times beside them;
   8  (only when asked for alone) the real mnt4_marlin PCD chain through
      the universal setup (reference tests/mnt4_marlin.rs:141-204):
      universal setup, index, base case, step 2, both verified, and the
      negative check.  Hours of host work: never in the default run.
-Phase 1 always runs.  K2's and K3's records come from phase 2; their
-`launches` sum their launches over the chains run (null when none ran).  Any failure exits non-zero without the final
-line.  Nothing here imports JAX or the JAX package.
+Phase 1 always runs, and phase 9 runs after phase 3, before the chains.
+K2's and K3's records come from phase 2; their `launches` sum their
+launches over the chains run (null when none ran).  sched_digits' record
+comes from phase 9; its `launches` are those of phase 4's
+device-scheduled warm steps (phase 9's own when phase 4 did not run).
+Phases 6 and 7 run msm_dispatch.SCHEDULER's default.  Any failure exits
+non-zero without the final line.  Nothing here imports JAX or the JAX
+package.
 """
 
 from __future__ import annotations
@@ -108,11 +133,18 @@ REPLACES = {
                           "pcd_tpu/ops/ec32.py:1003",
     ("complete_add", 1): "pcd_tpu/ops/ec32.py:436",
     ("madd", 1): "pcd_tpu/ops/ec32.py:620",
+    # no Pallas site: the XLA digit glue of DevSchedMSM._p1 (lines 80-110)
+    ("sched_digits", 0): "pcd_tpu/ops/msm_stream_dev.py:80",
 }
 SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "complete_add": "pcd_tpu_torch/csrc/complete_add.cu",
            "madd": "pcd_tpu_torch/csrc/madd.cu",
-           "bucket_finish": "pcd_tpu_torch/csrc/bucket_finish.cu"}
+           "bucket_finish": "pcd_tpu_torch/csrc/bucket_finish.cu",
+           "sched_digits": "pcd_tpu_torch/csrc/sched_digits.cu"}
+# phase 4's extra warm steps: the stream-MSM scheduler of each, in turns
+# of adjacent pairs
+SCHED_TURNS = ("host", "device", "device", "host", "host", "device",
+               "device", "host", "host", "device")
 
 
 def say(phase, msg):
@@ -442,6 +474,18 @@ def record(kernel, form, D, err, ms, plain_ms, nbytes, mads):
             "library_ms": None}
 
 
+def encoded(native, curve, xs, ys, inf):
+    """raw_points' arrays as the C++ tier's EncodedPoints (no host point
+    objects), for native.msm."""
+    import numpy as np
+
+    enc = object.__new__(native.EncodedPoints)
+    enc.curve = curve
+    enc.handle, enc.deg, _ = native.curve_handle(curve)
+    enc.xs, enc.ys, enc.inf, enc.n = xs, ys, inf.astype(np.uint8), len(xs)
+    return enc
+
+
 def phase_msm(dev="cuda", log_n=18):
     """2^18 MNT4 G1 stream MSM against the C++ Pippenger."""
     import numpy as np
@@ -462,10 +506,7 @@ def phase_msm(dev="cuda", log_n=18):
                              cfg.Fr.BITS)
     scal = [int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)]
     limbs = native.ints_to_limbs(scal)
-    enc = object.__new__(native.EncodedPoints)
-    enc.curve = cfg.g1
-    enc.handle, enc.deg, _ = native.curve_handle(cfg.g1)
-    enc.xs, enc.ys, enc.inf, enc.n = xs, ys, inf.astype(np.uint8), n
+    enc = encoded(native, cfg.g1, xs, ys, inf)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = native.msm(enc, limbs)
@@ -486,6 +527,159 @@ def phase_msm(dev="cuda", log_n=18):
     say(3, f"2^{log_n} MNT4 G1 stream MSM == C++ Pippenger; schedule "
            f"{t_sched:.3f}s + device {t_dev:.3f}s vs C++ {t_host:.3f}s "
            f"(points built in {t_gen:.1f}s)")
+
+
+def low_entropy(n, c=12):
+    """Scalars with digits in two windows only, 0 and 5 (window 5's in one
+    of three buckets): the other windows stay empty."""
+    return [(i % 1009) | ((i % 3 + 1) << (5 * c)) for i in range(n)]
+
+
+def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
+    """The device scheduler at the chains' c = 12, L = 8192 (see the module
+    docstring, phase 9).  Appends sched_digits' `kernels` record (its
+    launches those of this phase; main() puts phase 4's there when it
+    ran)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+
+    dev = torch.device(dev)
+    # on the CPU (a rehearsal) the wrappers count plain-version calls
+    counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
+    cfg = M.mnt_cycle().main
+    r = cfg.Fr.MODULUS
+    rng = np.random.default_rng(9)
+    launches = 0
+    for grp, log in (("g1", log_n), ("g2", log_n2)):
+        curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
+        n = 1 << log
+        xs, ys, inf = raw_points(native, gen, [int(s) for s in rng.integers(
+            1, 1 << 62, n)], cfg.Fr.BITS)
+        enc = encoded(native, curve, xs, ys, inf)
+        sctx = StreamMSMCtx(curve, cfg.Fr.BITS)
+        dm = DevSchedMSM(sctx)
+        table = sctx.table_from_limbs(xs, ys, inf, dev)
+        dense = [int.from_bytes(rng.bytes(40), "little") % r
+                 for _ in range(n)]
+        for kind, sc in (("dense", dense), ("low-entropy", low_entropy(n))):
+            limbs = native.ints_to_limbs(sc)
+            want = native.msm(enc, limbs)
+            ec.reset_launch_counts()           # this MSM starts
+            got = dm.msm_limbs(table, limbs)
+            counts = counter()                 # this MSM ended
+            launches += counts.get(("sched_digits", dm.form), 0)
+            expect = {("madd_accumulate", curve.name): 1,
+                      ("bucket_finish", curve.name): 1,
+                      ("sched_digits", dm.form): 1}
+            if counts != expect:
+                raise AssertionError(f"devsched {curve.name} {kind}: "
+                                     f"launches {counts}, expected {expect}")
+            if got != want:
+                raise AssertionError(f"devsched 2^{log} {curve.name} {kind} "
+                                     f"MSM != C++ Pippenger")
+            W = dm.upload(limbs, dev)
+            sched = dm.schedule(W)
+            if kind == "low-entropy" and list(sched.act) != [0, 5]:
+                raise AssertionError(f"low-entropy scalars: active windows "
+                                     f"{sched.act}, expected [0, 5]")
+            msg = ""
+            if grp == "g1":
+                t0 = time.perf_counter()
+                mags, signs = sctx.digits_signed(limbs)
+                host = sctx.schedule(mags, signs, T=sched.T)
+                act = list(sched.act)
+                hb = host.bidx[act].astype(np.int64)
+                nact, L = len(act), sctx.L
+                shift = (np.arange(nact) - np.asarray(act))[:, None] * L
+                want_t = (host.perm.view(np.int32)[act], host.loads[act],
+                          np.where(hb == sctx.nwin * L, nact * L, hb + shift),
+                          host.runrem[act])
+                for nm, a, b in zip(("perm", "loads", "bidx", "runrem"),
+                                    sched.on(dev), want_t):
+                    if not np.array_equal(a.cpu().numpy(), b):
+                        raise AssertionError(f"devsched {kind}: {nm} != the "
+                                             f"host placement law at T = "
+                                             f"{sched.T}")
+                msg = (f"; schedule == host placement law at T = {sched.T} "
+                       f"(numpy oracle {time.perf_counter() - t0:.1f}s)")
+            say(phase, f"2^{log} {curve.name} {kind}: device-scheduled MSM "
+                       f"== C++ Pippenger, K1, K4 and sched_digits once; "
+                       f"{len(sched.act)} of {sctx.nwin} windows active, "
+                       f"T = {sched.T}, maxrun {sched.maxrun}" + msg)
+        if grp != "g1":
+            continue
+        limbs = native.ints_to_limbs(dense)
+        W = dm.upload(limbs, dev)
+        got = dm.digits(W)
+        sync(dev)
+        t0 = time.perf_counter()
+        want = dm.digits_plain(W)
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        if err:
+            raise AssertionError("sched_digits != its plain version")
+        ms = device_ms(lambda: dm.digits(W), 10, dev)
+        nbytes = W.numel() * 4 + sctx.nwin * n * 5
+        rec = record("sched_digits", dm.form, 0, err, ms, plain_ms, nbytes, 0)
+        results.append(rec)
+        # the schedule: C++ (host wall) against the device's (CUDA events
+        # from the upload to the placement, histogram fetch included), in
+        # turns, and the device steps alone
+        t = {"cpp": [], "dev": [], "dev_wall": []}
+        for who in ("cpp", "dev", "dev", "cpp", "cpp", "dev"):
+            sync(dev)
+            t0 = time.perf_counter()
+            if who == "cpp":
+                sctx.schedule_native(limbs)
+                t["cpp"].append((time.perf_counter() - t0) * 1e3)
+                continue
+            if dev.type != "cuda":                 # a CPU rehearsal
+                dm.schedule(dm.upload(limbs, dev))
+                t["dev_wall"].append((time.perf_counter() - t0) * 1e3)
+                t["dev"].append(t["dev_wall"][-1])
+                continue
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dm.schedule(dm.upload(limbs, dev))
+            b.record()
+            sync(dev)
+            t["dev_wall"].append((time.perf_counter() - t0) * 1e3)
+            t["dev"].append(a.elapsed_time(b))
+        order, signs_, counts = dm.p1(W)
+        act, T, _ = dm._pick_shapes(counts.cpu().numpy())
+        parts = {
+            "upload": device_ms(lambda: dm.upload(limbs, dev), 3, dev),
+            "digits": ms,
+            "sort+histogram": device_ms(
+                lambda: dm.p1(W), 5, dev) - ms,
+            "placement": device_ms(
+                lambda: dm.place(order, signs_, counts, act, T), 5, dev)}
+        med = {k: statistics.median(v) for k, v in t.items()}
+        say(phase, f"sched_digits[{dm.form}] on 2^{log} scalars: exact "
+                   f"against plain; {ms:.4f} ms, bound "
+                   f"{rec['bound_ms']:.4f} ms (bytes), plain "
+                   f"{plain_ms:.1f} ms")
+        say(phase, f"2^{log} schedule, medians of 3 in turns: device "
+                   f"{med['dev']:.3f} ms CUDA events ({med['dev_wall']:.3f} "
+                   f"ms wall) vs C++ {med['cpp']:.3f} ms wall; all "
+                   + json.dumps({k: [round(x, 3) for x in v]
+                                 for k, v in t.items()})
+                   + "; device parts (ms): " + json.dumps(
+                       {k: round(v, 4) for k, v in parts.items()}))
+    for rec in results:
+        if rec["name"].startswith("sched_digits["):
+            rec["launches"] = launches
 
 
 class LaunchProbe:
@@ -598,10 +792,110 @@ class LaunchProbe:
         return out
 
 
-def phase_chain(name="mnt4_groth16", phase=4, dev=None):
+def check_once_per_msm(counts, forms, what):
+    """K1 and K4 of every form exactly once per commitment MSM of one
+    prove of each side, K2 never."""
+    for f, grp, kind in forms:
+        want = K1_PER_PROVE[kind][grp]
+        for k in ("madd_accumulate", "bucket_finish"):
+            if counts.get((k, f), 0) != want:
+                raise AssertionError(f"{what}: {k}[{f}] launched "
+                                     f"{counts.get((k, f), 0)} times, "
+                                     f"expected {want}")
+        if counts.get(("complete_add", f), 0):
+            raise AssertionError(f"{what}: complete_add[{f}] launched")
+
+
+def sched_turns(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev, phase,
+                turns=SCHED_TURNS):
+    """Warm steps with msm_dispatch.SCHEDULER set in `turns`: each its
+    launches counted alone (K1 and K4 once per commitment MSM, sched_digits
+    twice a prove under "device", never under "host") and its spans; the
+    last proof of each scheduler verified.  Returns ({scheduler: {metric:
+    [median, min, max] s}}, sched_digits launches in all)."""
+    import statistics
+
+    from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.utils import profiling
+
+    F = pcd.ic.main_field
+    one, two = F.from_int(1), F.from_int(2)
+    default = msm_dispatch.SCHEDULER
+    runs, last = {}, {}
+    digits_all = 0
+    profiling.enable()
+    try:
+        for sch in turns:
+            msm_dispatch.SCHEDULER = sch
+            profiling.reset()
+            ec.reset_launch_counts()           # this warm step starts
+            t0 = time.perf_counter()
+            last[sch] = pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            got = counter()                    # this warm step ended
+            check_once_per_msm(got, forms, f"warm step, {sch} scheduler")
+            digits = sum(v for (k, _), v in got.items()
+                         if k == "sched_digits")
+            if digits != (4 if sch == "device" else 0):
+                raise AssertionError(f"warm step, {sch} scheduler: "
+                                     f"{digits} sched_digits launches")
+            digits_all += digits
+            tot = profiling.totals()
+
+            def total(leaf, tot=tot):
+                return sum(v[0] for k, v in tot.items()
+                           if k.rsplit("/", 1)[-1] == leaf)
+            runs.setdefault(sch, []).append({
+                "step": wall, "stream_dispatch": total("stream_dispatch"),
+                "stream_dispatch_h": total("stream_dispatch_h"),
+                "msm_collect": total("msm"),
+                "schedule": total("schedule_" + sch)})
+    finally:
+        msm_dispatch.SCHEDULER = default
+        profiling.enable(False)
+    for sch, proof in last.items():
+        if not pcd.verify(vk, pred, two, proof):
+            raise AssertionError(f"the {sch}-scheduled warm step does not "
+                                 f"verify")
+    out = {sch: {m: [statistics.median(r[m] for r in recs),
+                     min(r[m] for r in recs), max(r[m] for r in recs)]
+                 for m in recs[0]} for sch, recs in runs.items()}
+    verdict = None
+    if set(runs) == {"host", "device"}:
+        steps = {sch: [r["step"] for r in recs] for sch, recs in runs.items()}
+        it = {sch: iter(v) for sch, v in steps.items()}
+        order = [(sch, next(it[sch])) for sch in turns]
+        pairs = [dict(order[i:i + 2]) for i in range(0, len(order) - 1, 2)]
+        wins = sum(p.get("device", 1e9) < p.get("host", 0) for p in pairs)
+        q1, _, q3 = statistics.quantiles(steps["host"], n=4,
+                                         method="inclusive")
+        gap = out["host"]["step"][0] - out["device"]["step"][0]
+        verdict = ("device" if wins >= 0.9 * len(pairs) and gap > q3 - q1
+                   else "host")
+        say(phase, f"scheduler verdict: device shorter in {wins} of "
+                   f"{len(pairs)} pairs, medians {gap:+.4f} s apart "
+                   f"(host interquartile {q3 - q1:.4f} s): {verdict!r}")
+    for sch, recs in runs.items():
+        say(phase, f"{sch}-scheduled warm steps ({len(recs)}, turns "
+                   f"{'/'.join(turns)}), each verified or checked once per "
+                   f"MSM: " + json.dumps(
+                       {m: [round(r[m], 4) for r in recs] for m in recs[0]}))
+    say(phase, "scheduler medians [median, min, max] (s): " + json.dumps(
+        {sch: {m: [round(x, 4) for x in v] for m, v in ms.items()}
+         for sch, ms in out.items()}) + f"; default {default!r}")
+    if verdict is not None and verdict != default:
+        say(phase, f"note: the verdict {verdict!r} is not "
+                   f"msm_dispatch.SCHEDULER's default {default!r}")
+    return out, digits_all
+
+
+def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=()):
     """The IVC chain of configs.<name> (the real cycle, on the card unless
     `dev` says otherwise).  Returns the launch counts of the main path
-    (base case + warm step) and the probe of the warm step."""
+    (base case + warm step), the probe of the warm step, and with `turns`
+    sched_turns' result (else None)."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
     from pcd_tpu_torch.pcd.api import FpPredicate
@@ -705,18 +999,13 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None):
                              + ", ".join(missing))
     # every commitment MSM of both proves ran K1 and K4 once: none went to
     # the host; K2 no longer runs on the path
-    for f, grp, kind in forms:
-        want = K1_PER_PROVE[kind][grp]
-        for k in ("madd_accumulate", "bucket_finish"):
-            got = (step2.get((k, f), 0), counts.get((k, f), 0))
-            if got != (want, 2 * want):
-                raise AssertionError(
-                    f"{k}[{f}]: {got[0]} launches in the warm step and "
-                    f"{got[1]} in both proves, expected {want} and "
-                    f"{2 * want}")
-        if counts.get(("complete_add", f), 0):
-            raise AssertionError(f"complete_add[{f}] launched on the path")
-    return counts, probe
+    check_once_per_msm(base_counts, forms, "the base case")
+    check_once_per_msm(step2, forms, "the warm step")
+    took = None
+    if turns:
+        took = sched_turns(pcd, pk, vk, pred, proof_1, rng, forms, counter,
+                           dev, phase, turns)
+    return counts, probe, took
 
 
 def phase_path(results, probe, counts, name="mnt4_groth16", phase=5,
@@ -863,8 +1152,11 @@ class KZGProbe:
 
 def marlin_stage(what, calls, before, after, form, stream_min, most):
     """Hold one stage's launches to its KZG MSMs: K1 and K4 of `form` once
-    per stream MSM, each of at least stream_min scalars, the host MSMs
-    all below it, no other launch.  Returns the number of stream MSMs."""
+    per stream MSM (and sched_digits under the device scheduler), each of
+    at least stream_min scalars, the host MSMs all below it, no other
+    launch.  Returns the number of stream MSMs."""
+    from pcd_tpu_torch.snark import msm_dispatch
+
     streamed = [c for c in calls if c[0] == "stream"]
     hosted = [c for c in calls if c[0] == "host"]
     if any(c[1] < stream_min for c in streamed) \
@@ -876,6 +1168,12 @@ def marlin_stage(what, calls, before, after, form, stream_min, most):
                              f"most {most} expected")
     delta = {k: v - before.get(k, 0) for k, v in after.items()
              if v != before.get(k, 0)}
+    digits = sum(delta.pop(k) for k in list(delta) if k[0] == "sched_digits")
+    if digits != (len(streamed) if msm_dispatch.SCHEDULER == "device"
+                  else 0):
+        raise AssertionError(f"{what}: {digits} sched_digits launches for "
+                             f"{len(streamed)} stream MSMs under the "
+                             f"{msm_dispatch.SCHEDULER!r} scheduler")
     want = {(k, form): len(streamed) for k in ("madd_accumulate",
                                                 "bucket_finish")
             if streamed}
@@ -1094,12 +1392,12 @@ def phase_marlin_chain(dev=None, phase=8):
 
 
 def main(argv):
-    phases = {1, 2, 3, 4, 6, 7}
+    phases = {1, 2, 3, 4, 6, 7, 9}
     if "--phases" in argv:
         asked = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
         if asked - phases - {8} or (8 in asked and asked - {1, 8}):
-            print(f"chip_smoke: phases to choose: 1, 2, 3, 4, 6, 7, or 8 "
-                  f"alone (5 runs with 4 and 6); asked {sorted(asked)}",
+            print(f"chip_smoke: phases to choose: 1, 2, 3, 4, 6, 7, 9, or "
+                  f"8 alone (5 runs with 4 and 6); asked {sorted(asked)}",
                   file=sys.stderr)
             return 2
         phases = asked | {1}
@@ -1120,12 +1418,21 @@ def main(argv):
     results += k3
     if 3 in phases:
         phase_msm()
+    if 9 in phases:                # before the chains: they run it too
+        t0 = time.perf_counter()
+        phase_devsched(results)
+        say(9, f"device scheduler: {time.perf_counter() - t0:.1f}s")
     chain_counts = []
     for ph in sorted(set(CHAINS) & phases):
         for name in CHAINS[ph]:
             t0 = time.perf_counter()
-            counts, probe = phase_chain(name, ph)
+            counts, probe, took = phase_chain(
+                name, ph, turns=SCHED_TURNS if ph == 4 else ())
             chain_counts.append(counts)
+            if took is not None:   # sched_digits' launches on the path
+                for rec in results:
+                    if rec["name"].startswith("sched_digits["):
+                        rec["launches"] = took[1]
             phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
             say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
                     f"first-launch kernel checks")

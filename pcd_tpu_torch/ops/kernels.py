@@ -26,7 +26,8 @@ HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh")
 SOURCES = {"madd_accumulate": "madd_accumulate.cu",
            "complete_add": "complete_add.cu",
            "madd": "madd.cu",
-           "bucket_finish": "bucket_finish.cu"}
+           "bucket_finish": "bucket_finish.cu",
+           "sched_digits": "sched_digits.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -102,6 +103,8 @@ ENTRIES = {
                        [_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
                         _ci, _vp, _vp]),
                       ("pcd_finish_block", _ci, [])],
+    "sched_digits": [("pcd_sched_digits", _ci,
+                      [_vp, _cl, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp])],
 }
 
 

@@ -6,8 +6,9 @@ The integer bookkeeping is host work and the field math is device work:
   host  the C++ tier's msm_schedule (native/__init__.py) turns the scalars
         into signed c-bit digits and places every nonzero digit on one of
         L accumulator lanes per window, each lane folding at most T points
-        of one bucket; the numpy `schedule` below is kept only as the
-        tests' oracle;
+        of one bucket (ops/msm_stream_dev.py computes the same placement
+        on the device, over the windows that have a nonzero digit); the
+        numpy `schedule` below is kept only as the tests' oracle;
   card  K1 (ops/ec.py madd_accumulate) folds every lane of every window
         in one launch, gathering its table rows by index and negating Y
         for negative digits itself (so the table holds each point once,
@@ -42,13 +43,15 @@ class StreamSchedule:
     lengths (runrem) and their pow2 bound (maxrun).  Device copies are
     memoized per device, so the prover's a/b1/b2/l MSMs share one upload."""
 
-    __slots__ = ("perm", "loads", "bidx", "runrem", "maxrun", "T", "_dev")
+    __slots__ = ("perm", "loads", "bidx", "runrem", "maxrun", "T", "act",
+                 "_dev")
 
     def __init__(self, perm, loads, bidx_minacc, T, L):
         nwin = perm.shape[0]
         self.perm = perm
         self.loads = loads
         self.T = T
+        self.act = tuple(range(nwin))      # every window has its row
         # bidx arrives min-accumulated ("first lane of the smallest
         # nonempty bucket >= j", sentinel nwin*L); the two-phase finish
         # wants the DIRECT first lane per bucket + per-lane run lengths
@@ -166,8 +169,10 @@ class StreamMSMCtx:
             T += max(1, T // 8)
 
     def schedule(self, mags: np.ndarray, signs: np.ndarray,
-                 inf=None) -> StreamSchedule:
-        """numpy schedule: the oracle the tests hold the C++ one to."""
+                 inf=None, T=None) -> StreamSchedule:
+        """numpy schedule: the oracle the tests hold the C++ one and the
+        device schedule (ops/msm_stream_dev.py) to.  T: the rounds to
+        place at, where the caller fixes them (at least the fit)."""
         nwin, n = mags.shape
         L, B = self.L, self.B
         if inf is not None:
@@ -175,14 +180,17 @@ class StreamMSMCtx:
             if inf.any():
                 mags = np.where(inf[None, :], 0, mags)
         per_win = []
-        T = 8
+        fit = 8
         for w in range(nwin):
             mag = mags[w]
             counts = np.bincount(mag, minlength=B + 1)
             m = n - int(counts[0])
             per_win.append((mag, counts))
-            T = max(T, self._fit_T(counts[1:], m))
-        T = -(-T // 4) * 4
+            fit = max(fit, self._fit_T(counts[1:], m))
+        if T is None:
+            T = -(-fit // 4) * 4
+        elif T < fit:
+            raise ValueError(f"schedule: T = {T} below the fit {fit}")
         perm = np.zeros((nwin, T * L), dtype=np.uint32)
         loads = np.zeros((nwin, L), dtype=np.int32)
         bidx = np.full((nwin, B), nwin * L, dtype=np.int32)
@@ -286,13 +294,17 @@ class StreamMSMCtx:
         window sums sum_b b*S_b: one K4 launch."""
         return self.ec.bucket_finish(accs, bidx, runrem)
 
-    def window_sums(self, table, sched: StreamSchedule) -> torch.Tensor:
-        """(nwin, 3, d, 10) window sums on the table's device."""
+    def window_sums(self, table, sched) -> torch.Tensor:
+        """(len(sched.act), 3, d, 10) sums of the schedule's windows on the
+        table's device; sched a StreamSchedule or a device schedule
+        (ops/msm_stream_dev.py).  No window: nothing launches."""
+        if not sched.act:
+            return self.ec.identity((0,), table.device)
         perm, loads, bidx, runrem = sched.on(table.device)
         accs = self.ec.madd_accumulate(table, perm, loads)
         return self._finish(accs, bidx, runrem)
 
-    def window_sums_async(self, table, sched: StreamSchedule):
+    def window_sums_async(self, table, sched):
         """Enqueue the device pipeline without waiting: returns (window
         sums, CUDA event recorded after them on the current stream, or
         None on the CPU)."""
@@ -311,12 +323,19 @@ class StreamMSMCtx:
         return ws.cpu().numpy()
 
     # -- host tail ---------------------------------------------------------
-    def horner_host(self, wsn) -> object:
+    def horner_host(self, wsn, act=None) -> object:
+        """sum_w 2^(c w) W_w over the window sums wsn, row i the sum of
+        window act[i] (every window when act is None); the others are the
+        identity and only pay their doublings."""
+        pos = {w: i for i, w in enumerate(
+            range(self.nwin) if act is None else act)}
         acc = self.curve.infinity()
         for w in reversed(range(self.nwin)):
             for _ in range(self.c):
                 acc = acc.double()
-            acc = acc + self.ec.decode_point(wsn[w])
+            i = pos.get(w)
+            if i is not None:
+                acc = acc + self.ec.decode_point(wsn[i])
         return acc
 
     # -- entry points -------------------------------------------------------

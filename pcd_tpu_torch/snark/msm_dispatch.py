@@ -4,8 +4,13 @@ marshalling, the host halves of `fb_mul` and `msm_any`, `subrange` and
 its stream half (lines 142-286 there).  `stream_launch`, `zpad_query`
 and `side_stream` hold the dispatch that the reference's Groth16 and
 GM17 provers each write inline.  The device-resident legacy tier
-(DevicePointVec, the scan MSM, device fixed-base) and the device-side
-scheduler are not ported.
+(DevicePointVec, the scan MSM, device fixed-base) is not ported.
+
+SCHEDULER picks who schedules a stream MSM: "host", the C++ tier's
+threaded msm_schedule, or "device", DevSchedMSM (ops/msm_stream_dev.py),
+where only the scalar limbs cross and the digits, sort and placement run
+on the device.  Both schedules feed the same K1 -> K4 -> Horner pipeline;
+it replaces the reference's PCD_TPU_DEVSCHED environment variable.
 
 The stream tier runs on the device the prover was built for: on a CUDA
 device the kernels of ops/ec.py, on the CPU their plain versions.  Work is
@@ -29,6 +34,11 @@ from ..utils.profiling import span
 # again on the card (PERF.md).  The per-window sums do not depend on L.
 WINDOW_BITS = 12
 LANES = 8192
+# Who schedules the stream MSMs, "host" or "device" (see the module
+# docstring).  "host" from the H100 measurements in PERF.md: the device
+# schedule cut the schedule spans tenfold, but the warm step's gain stayed
+# inside its spread between steps.
+SCHEDULER = "host"
 
 
 def host_query(owner, name: str):
@@ -215,14 +225,33 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                                                    digest_size=16).digest())
         sched = sched_cache.get(key)
     if sched is None:
-        sched = sctx.schedule_native(sl)
+        sched = schedule(sctx, sl, device)
         if key is not None:
             sched_cache[key] = sched
-    return (sctx,) + sctx.window_sums_async(table, sched)
+    return (sctx, sched.act) + sctx.window_sums_async(table, sched)
+
+
+def schedule(sctx, scal_limbs, device):
+    """The schedule of (n, NL) u64 limb scalars by SCHEDULER: the C++
+    tier's StreamSchedule, or a DevSchedule computed on `device` (its one
+    histogram fetch waits on the caller's current stream, the prover's MSM
+    side stream).  Either raises on failure; neither falls back."""
+    if SCHEDULER == "host":
+        with span("schedule_host"):
+            return sctx.schedule_native(scal_limbs)
+    if SCHEDULER == "device":
+        from ..ops.msm_stream_dev import devsched_ctx
+
+        dm = devsched_ctx(sctx.curve, sctx.scalar_bits, sctx.c, sctx.L)
+        with span("schedule_device"):
+            return dm.schedule(dm.upload(scal_limbs, device))
+    raise ValueError(f"msm_dispatch.SCHEDULER: 'host' or 'device', not "
+                     f"{SCHEDULER!r}")
 
 
 def stream_collect(fut):
-    """Wait for a dispatched stream MSM and Horner-combine on the host."""
-    sctx, ws, ev = fut
-    return sctx.horner_host(sctx.collect(ws, ev))
+    """Wait for a dispatched stream MSM and Horner-combine on the host
+    over the windows its schedule covers."""
+    sctx, act, ws, ev = fut
+    return sctx.horner_host(sctx.collect(ws, ev), act)
 

@@ -232,3 +232,68 @@ def test_kzg_stream_at_offset_on_card(cyc, cuda_device):
     off = 3000 - 2500
     assert comm.c == host_msm(powers.slice(0, 2000), coeffs)
     assert comm.shifted == host_msm(powers.slice(off, off + 2000), coeffs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry_win", [False, True], ids=["absorbed",
+                                                          "carry_win"])
+def test_sched_digits_match_plain(carry_win, cuda_device):
+    """sched_digits on 2^16 298-bit scalars at c = 12 (298 bits: the top
+    window absorbs the carry; 300: it gets a window of its own) against
+    its plain version and the host digits, limb for limb, one launch."""
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+
+    cfg = M.mnt_cycle().main
+    bits = 300 if carry_win else cfg.Fr.BITS
+    sctx = StreamMSMCtx(cfg.g1, bits, c=12, lanes=8192)
+    assert sctx.carry_win == carry_win
+    dm = DevSchedMSM(sctx)
+    rng = np.random.default_rng(12)
+    r = cfg.Fr.MODULUS
+    scalars = [int.from_bytes(rng.bytes(40), "little") % r
+               for _ in range(1 << 16)]
+    scalars[:4] = [0, 1, r - 1, (1 << 297) - 1]
+    limbs = native.ints_to_limbs(scalars)
+    W = dm.upload(limbs, cuda_device)
+    key = ("sched_digits", dm.form)
+    before = launch_counts().get(key, 0)
+    mags, signs = dm.digits(W)
+    assert launch_counts()[key] == before + 1
+    pm, ps = dm.digits_plain(W)
+    assert torch.equal(mags, pm) and torch.equal(signs, ps)
+    hm, hs = sctx.digits_signed(limbs)
+    assert np.array_equal(mags.cpu().numpy(), hm)
+    assert np.array_equal(signs.cpu().numpy().astype(bool), hs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_devsched_msm_on_card(form, cuda_device):
+    """A device-scheduled MSM on the card equals the C++ Pippenger; its
+    schedule equals the host placement law at its T, and low-entropy
+    scalars leave windows out."""
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+
+    cfg, curve, pts, xs, ys, inf = _table(form, 600, 13)
+    sctx = StreamMSMCtx(curve, cfg.Fr.BITS, c=8, lanes=256)
+    dm = DevSchedMSM(sctx)
+    table = sctx.table_from_limbs(xs, ys, inf, cuda_device)
+    rng = np.random.default_rng(14)
+    r = cfg.Fr.MODULUS
+    dense = [int.from_bytes(rng.bytes(40), "little") % r
+             for _ in range(len(pts))]
+    sparse = [(i % 5) | (3 << 16) for i in range(len(pts))]
+    for scalars in (dense, sparse):
+        limbs = sctx.limb_rows(scalars, (cfg.Fr.BITS + 63) // 64 * 8)
+        assert dm.msm_limbs(table, limbs) == host_msm(pts, scalars)
+        sched = dm.schedule(dm.upload(limbs, cuda_device))
+        mags, signs = sctx.digits_signed(limbs)
+        host = sctx.schedule(mags, signs, T=sched.T)
+        perm, loads, _, runrem = (t.cpu().numpy()
+                                  for t in sched.on(cuda_device))
+        act = list(sched.act)
+        assert np.array_equal(perm, host.perm.view(np.int32)[act])
+        assert np.array_equal(loads, host.loads[act])
+        assert np.array_equal(runrem, host.runrem[act])
+    assert len(sched.act) == 2
