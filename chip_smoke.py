@@ -2,16 +2,16 @@
 """Drive pcd_tpu_torch on an NVIDIA card and hold its kernels to their
 plain versions.  Run from the root of a checkout with one CUDA card:
 
-    python3 chip_smoke.py                # phases 1-7 and 9
-    python3 chip_smoke.py --phases 1,6   # a subset of 1, 2, 3, 4, 6, 7, 9
+    python3 chip_smoke.py                # phases 1-7, 9 and 10
+    python3 chip_smoke.py --phases 1,6   # a subset of 1-4, 6, 7, 9, 10
     python3 chip_smoke.py --phases 8     # the real Marlin chain (hours)
 
 Phases, one output line each, then a `kernels` JSON line and the final
 status line:
   1  card and build: nvidia-smi's name and power limit; the C++ host tier
-     (g++) and the CUDA kernels (one nvcc per source, sched_digits too)
-     built in parallel from the checkout, with ptxas' register and spill
-     report;
+     (g++) and the CUDA kernels (one nvcc per source, sched_digits and the
+     quotient's K5-K7 too) built in parallel from the checkout, with
+     ptxas' register and spill report;
   2  every kernel against its plain torch version on the card, for the
      four field forms of the main path (MNT4/MNT6 G1 over Fq, MNT4 G2 over
      Fq2, MNT6 G2 over Fq3): K1 on 25 windows x 8192 lanes, T = 8, with
@@ -33,16 +33,23 @@ status line:
      once per commitment MSM, K4 once per commitment MSM, K2 never;
      CUDA-event device time of every launch of the warm step, of the
      whole finish (StreamMSMCtx._finish), and of the warm step's finishes
-     replayed through K4 and through finish_steps in turns; then ten more
-     warm steps, the scheduler (msm_dispatch.SCHEDULER) in five adjacent
+     replayed through K4 and through finish_steps in turns; then six more
+     warm steps, the scheduler (msm_dispatch.SCHEDULER) in three adjacent
      host/device pairs, alternating which runs first, each step with K1
      and K4 exactly once per commitment MSM (sched_digits twice a prove
      under "device"), the last proof of each verified; per scheduler the
      medians and ranges of the step, stream_dispatch, stream_dispatch_h,
      the MSM collect (groth16/msm) and the schedule spans, and the
-     verdict that sets the default: "device" when its step is shorter in
-     at least nine tenths of the pairs and its median shorter than the
-     host's by more than the host steps' interquartile distance;
+     verdict: "device" when its step is shorter in at least nine tenths
+     of the pairs and its median shorter than the host's by more than the
+     host steps' interquartile distance; then one untimed warm step under
+     the device quotient (its set-up) and ten warm steps with the
+     quotient tier (msm_dispatch.QUOTIENT) in five such pairs, K5, K6 and
+     K7 launched under "device" only, with the same medians (and the
+     h_poly, matvec and hpoly spans) and the verdict by the same rule;
+     then one warm step under each quotient tier inside device_trace
+     (torch.profiler; chiprun_out/device_trace/), with the card's busy
+     and idle shares of the step;
   5  each kernel again on the inputs of its first launch in the warm step
      (K1 and K4: the a-query or b_g2 MSM), exactly against its plain
      version, with CUDA-event times, K4 beside finish_steps on the same
@@ -51,6 +58,8 @@ status line:
   6  phases 4 and 5 for the real-cycle GM17 chain mnt4_gm17 and the
      mixed chains mnt4_mix_groth16_gm17 and mnt4_mix_gm17_groth16, each
      at full width; K1 exactly once per commitment MSM of either SNARK;
+     each chain then one more warm step under the device quotient, which
+     verifies, K5-K7 launched;
   7  the Marlin SNARK (KZG10 over the real curves, universal SRS) on
      MNT4-298, the main side of mnt4_marlin, and MNT6-298, its help side,
      on a squaring chain of 2^MARLIN_LOG_M constraints in place of the
@@ -73,18 +82,30 @@ status line:
      scalars; the schedule's CUDA-event ms (upload to placement, the
      histogram fetch included) against the C++ schedule's wall ms, in
      turns, with the digits, sort and placement times beside them;
+ 10  the device quotient, after phase 4: K5 (every level of a forward
+     transform) and K7 (every op) exactly against their plain versions
+     on the four real domains, random inputs from a seed: MNT4-298 Fr at
+     225,792 (Groth16 main) and 688,128 (GM17 main) points, MNT6-298 Fr
+     at 31,360 and 107,520; K6 on the real Groth16 circuits' matrices of
+     phase 4's pk against its plain version and the C++ matvec on the z
+     of a host-quotient warm step; the device h equal to that step's C++
+     hpoly h, main and help; CUDA-event ms per kernel and per quotient.
+     Without phase 4 only the first part runs;
   8  (only when asked for alone) the real mnt4_marlin PCD chain through
      the universal setup (reference tests/mnt4_marlin.rs:141-204):
      universal setup, index, base case, step 2, both verified, and the
      negative check.  Hours of host work: never in the default run.
-Phase 1 always runs, and phase 9 runs after phase 3, before the chains.
-K2's and K3's records come from phase 2; their `launches` sum their
-launches over the chains run (null when none ran).  sched_digits' record
-comes from phase 9; its `launches` are those of phase 4's
-device-scheduled warm steps (phase 9's own when phase 4 did not run).
-Phases 6 and 7 run msm_dispatch.SCHEDULER's default.  Any failure exits
-non-zero without the final line.  Nothing here imports JAX or the JAX
-package.
+Phase 1 always runs, phase 9 runs after phase 3, before the chains, and
+phase 10 between phases 4 and 6.  K2's and K3's records come from phase
+2; their `launches` sum their launches over the chains run (null when
+none ran).  sched_digits' record comes from phase 9; its `launches` are
+those of phase 4's device-scheduled warm steps (phase 9's own when phase
+4 did not run).  K5-K7's records come from phase 10; their `launches`
+are those of a device-quotient warm step of their chain (mnt4_groth16's
+from phase 4, mnt4_gm17's from phase 6; null when it did not run).
+Phases 6 and 7 run msm_dispatch.SCHEDULER's and QUOTIENT's defaults.
+Any failure exits non-zero without the final line.  Nothing here imports
+JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -135,16 +156,25 @@ REPLACES = {
     ("madd", 1): "pcd_tpu/ops/ec32.py:620",
     # no Pallas site: the XLA digit glue of DevSchedMSM._p1 (lines 80-110)
     ("sched_digits", 0): "pcd_tpu/ops/msm_stream_dev.py:80",
+    # no Pallas site: the device quotient's XLA programs
+    ("ntt_level", 0): "pcd_tpu/ops/fft_tensor.py:74",
+    ("spmv_rows", 0): "pcd_tpu/ops/matvec_tensor.py:77",
+    ("fp_vec", 0): "pcd_tpu/snark/groth16/native.py:497, "
+                   "pcd_tpu/ops/fft_tensor.py:111",
 }
 SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "complete_add": "pcd_tpu_torch/csrc/complete_add.cu",
            "madd": "pcd_tpu_torch/csrc/madd.cu",
            "bucket_finish": "pcd_tpu_torch/csrc/bucket_finish.cu",
-           "sched_digits": "pcd_tpu_torch/csrc/sched_digits.cu"}
-# phase 4's extra warm steps: the stream-MSM scheduler of each, in turns
-# of adjacent pairs
-SCHED_TURNS = ("host", "device", "device", "host", "host", "device",
-               "device", "host", "host", "device")
+           "sched_digits": "pcd_tpu_torch/csrc/sched_digits.cu",
+           "ntt_level": "pcd_tpu_torch/csrc/ntt.cu",
+           "spmv_rows": "pcd_tpu_torch/csrc/spmv.cu",
+           "fp_vec": "pcd_tpu_torch/csrc/fp_vec.cu"}
+# phase 4's extra warm steps: the stream-MSM scheduler of each, then the
+# quotient tier of each, in turns of adjacent pairs
+SCHED_TURNS = ("host", "device", "device", "host", "host", "device")
+QUOTIENT_TURNS = ("host", "device", "device", "host", "host", "device",
+                  "device", "host", "host", "device")
 
 
 def say(phase, msg):
@@ -703,10 +733,10 @@ class LaunchProbe:
         self.firsts = []     # the first of them per curve
         self.events = []     # ((kernel or "finish", curve name), start, end)
 
-    def _timed(self, key, fn, *args):
+    def _timed(self, key, fn, *args, on=None):
         import torch
 
-        if args[1].device.type != "cuda":
+        if (args[1] if on is None else on).device.type != "cuda":
             return fn(*args)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -718,6 +748,9 @@ class LaunchProbe:
 
     def __enter__(self):
         from pcd_tpu_torch.ops.ec import ECCtx
+        from pcd_tpu_torch.ops.fft_tensor import FFTTensorCtx
+        from pcd_tpu_torch.ops.field import FieldCtx
+        from pcd_tpu_torch.ops.matvec_tensor import SparseMatVec
         from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
 
         self._orig = {attr: getattr(ECCtx, attr) for _, attr in self.WRAPPED}
@@ -749,6 +782,28 @@ class LaunchProbe:
 
         for kernel, attr in self.WRAPPED:
             setattr(ECCtx, attr, wrap(kernel, self._orig[attr]))
+        # the device quotient's K5-K7: CUDA events only
+        self._quot = [(FFTTensorCtx, "ntt_level", "ntt_level",
+                       lambda c, a: (c.f.name, a[0])),
+                      (SparseMatVec, "apply", "spmv_rows",
+                       lambda c, a: (c.f.name, a[0])),
+                      (FieldCtx, "_fp_vec", "fp_vec",
+                       lambda c, a: (c.name, a[5][0]))]
+
+        def timed(kernel, fn, where):
+            def probed(ctx, *args, **kw):
+                if not self.on:
+                    return fn(ctx, *args, **kw)
+                name, t = where(ctx, args)
+                return self._timed((kernel, name), lambda *a: fn(*a, **kw),
+                                   ctx, *args, on=t)
+            return probed
+
+        self._quot_orig = [(cls, attr, getattr(cls, attr))
+                           for cls, attr, _, _ in self._quot]
+        for (cls, attr, kernel, where), (_, _, fn) in zip(self._quot,
+                                                          self._quot_orig):
+            setattr(cls, attr, timed(kernel, fn, where))
         return self
 
     def __exit__(self, *exc):
@@ -758,6 +813,8 @@ class LaunchProbe:
         for attr, fn in self._orig.items():
             setattr(ECCtx, attr, fn)
         StreamMSMCtx._finish = self._finish
+        for cls, attr, fn in self._quot_orig:
+            setattr(cls, attr, fn)
 
     def replay_finishes(self):
         """The warm step's finishes again, each through K4 (the port's
@@ -806,13 +863,22 @@ def check_once_per_msm(counts, forms, what):
             raise AssertionError(f"{what}: complete_add[{f}] launched")
 
 
-def sched_turns(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev, phase,
-                turns=SCHED_TURNS):
-    """Warm steps with msm_dispatch.SCHEDULER set in `turns`: each its
-    launches counted alone (K1 and K4 once per commitment MSM, sched_digits
-    twice a prove under "device", never under "host") and its spans; the
-    last proof of each scheduler verified.  Returns ({scheduler: {metric:
-    [median, min, max] s}}, sched_digits launches in all)."""
+# the device quotient's kernels (on the path only under QUOTIENT "device")
+QUOTIENT_KERNELS = ("ntt_level", "spmv_rows", "fp_vec")
+
+
+def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
+               phase, turns):
+    """Warm steps with msm_dispatch.<knob> ("SCHEDULER" or "QUOTIENT") set
+    in `turns`: each its launches counted alone (K1 and K4 once per
+    commitment MSM; sched_digits twice a prove under the device
+    scheduler and never under the host one; K5, K6 and K7 under the
+    device quotient only) and its spans; the last proof of each setting
+    verified.  The verdict: "device" when its step is shorter in at
+    least nine tenths of the adjacent pairs and its median shorter than
+    the host's by more than the host steps' interquartile distance.
+    Returns ({setting: {metric: [median, min, max] s}}, sched_digits
+    launches in all, the launch counts of the first "device" step)."""
     import statistics
 
     from pcd_tpu_torch.ops import ec
@@ -821,52 +887,69 @@ def sched_turns(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev, phase,
 
     F = pcd.ic.main_field
     one, two = F.from_int(1), F.from_int(2)
-    default = msm_dispatch.SCHEDULER
+    default = getattr(msm_dispatch, knob)
     runs, last = {}, {}
-    digits_all = 0
+    digits_all, dev_counts = 0, None
     profiling.enable()
     try:
-        for sch in turns:
-            msm_dispatch.SCHEDULER = sch
+        for val in turns:
+            setattr(msm_dispatch, knob, val)
             profiling.reset()
             ec.reset_launch_counts()           # this warm step starts
             t0 = time.perf_counter()
-            last[sch] = pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
+            last[val] = pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
             sync(dev)
             wall = time.perf_counter() - t0
             got = counter()                    # this warm step ended
-            check_once_per_msm(got, forms, f"warm step, {sch} scheduler")
+            what = f"warm step, {knob} {val!r}"
+            check_once_per_msm(got, forms, what)
             digits = sum(v for (k, _), v in got.items()
                          if k == "sched_digits")
-            if digits != (4 if sch == "device" else 0):
-                raise AssertionError(f"warm step, {sch} scheduler: "
-                                     f"{digits} sched_digits launches")
+            sched_dev = msm_dispatch.SCHEDULER == "device"
+            if digits != (4 if sched_dev else 0):
+                raise AssertionError(f"{what}: {digits} sched_digits "
+                                     f"launches")
+            quot = {k: sum(v for (kk, _), v in got.items() if kk == k)
+                    for k in QUOTIENT_KERNELS}
+            if msm_dispatch.QUOTIENT == "device":
+                if not all(quot.values()):
+                    raise AssertionError(f"{what}: a device-quotient kernel "
+                                         f"never launched: {quot}")
+                if dev_counts is None:
+                    dev_counts = got
+            elif any(quot.values()):
+                raise AssertionError(f"{what}: quotient kernels launched "
+                                     f"under the host quotient: {quot}")
             digits_all += digits
             tot = profiling.totals()
 
             def total(leaf, tot=tot):
                 return sum(v[0] for k, v in tot.items()
                            if k.rsplit("/", 1)[-1] == leaf)
-            runs.setdefault(sch, []).append({
-                "step": wall, "stream_dispatch": total("stream_dispatch"),
-                "stream_dispatch_h": total("stream_dispatch_h"),
-                "msm_collect": total("msm"),
-                "schedule": total("schedule_" + sch)})
+            rec = {"step": wall, "stream_dispatch": total("stream_dispatch"),
+                   "stream_dispatch_h": total("stream_dispatch_h"),
+                   "msm_collect": total("msm")}
+            if knob == "SCHEDULER":
+                rec["schedule"] = total("schedule_" + val)
+            else:
+                rec.update(h_poly=total("h_poly"), matvec=total("matvec"),
+                           hpoly=total("hpoly"))
+            runs.setdefault(val, []).append(rec)
     finally:
-        msm_dispatch.SCHEDULER = default
+        setattr(msm_dispatch, knob, default)
         profiling.enable(False)
-    for sch, proof in last.items():
+    for val, proof in last.items():
         if not pcd.verify(vk, pred, two, proof):
-            raise AssertionError(f"the {sch}-scheduled warm step does not "
-                                 f"verify")
-    out = {sch: {m: [statistics.median(r[m] for r in recs),
+            raise AssertionError(f"the warm step under {knob} {val!r} does "
+                                 f"not verify")
+    out = {val: {m: [statistics.median(r[m] for r in recs),
                      min(r[m] for r in recs), max(r[m] for r in recs)]
-                 for m in recs[0]} for sch, recs in runs.items()}
+                 for m in recs[0]} for val, recs in runs.items()}
     verdict = None
     if set(runs) == {"host", "device"}:
-        steps = {sch: [r["step"] for r in recs] for sch, recs in runs.items()}
-        it = {sch: iter(v) for sch, v in steps.items()}
-        order = [(sch, next(it[sch])) for sch in turns]
+        steps = {val: [r["step"] for r in recs] for val, recs in runs.items()}
+        it = {val: iter(v) for val, v in steps.items()}
+        order = [(val, next(it[val])) for val in turns]
         pairs = [dict(order[i:i + 2]) for i in range(0, len(order) - 1, 2)]
         wins = sum(p.get("device", 1e9) < p.get("host", 0) for p in pairs)
         q1, _, q3 = statistics.quantiles(steps["host"], n=4,
@@ -874,28 +957,117 @@ def sched_turns(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev, phase,
         gap = out["host"]["step"][0] - out["device"]["step"][0]
         verdict = ("device" if wins >= 0.9 * len(pairs) and gap > q3 - q1
                    else "host")
-        say(phase, f"scheduler verdict: device shorter in {wins} of "
+        say(phase, f"{knob} verdict: device shorter in {wins} of "
                    f"{len(pairs)} pairs, medians {gap:+.4f} s apart "
                    f"(host interquartile {q3 - q1:.4f} s): {verdict!r}")
-    for sch, recs in runs.items():
-        say(phase, f"{sch}-scheduled warm steps ({len(recs)}, turns "
+    for val, recs in runs.items():
+        say(phase, f"{knob} {val!r} warm steps ({len(recs)}, turns "
                    f"{'/'.join(turns)}), each verified or checked once per "
                    f"MSM: " + json.dumps(
                        {m: [round(r[m], 4) for r in recs] for m in recs[0]}))
-    say(phase, "scheduler medians [median, min, max] (s): " + json.dumps(
-        {sch: {m: [round(x, 4) for x in v] for m, v in ms.items()}
-         for sch, ms in out.items()}) + f"; default {default!r}")
+    say(phase, f"{knob} medians [median, min, max] (s): " + json.dumps(
+        {val: {m: [round(x, 4) for x in v] for m, v in ms.items()}
+         for val, ms in out.items()}) + f"; default {default!r}")
     if verdict is not None and verdict != default:
         say(phase, f"note: the verdict {verdict!r} is not "
-                   f"msm_dispatch.SCHEDULER's default {default!r}")
-    return out, digits_all
+                   f"msm_dispatch.{knob}'s default {default!r}")
+    return out, digits_all, dev_counts
 
 
-def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=()):
+def card_busy(trace_path, wall_s):
+    """Busy and idle shares of the card over a traced step of wall_s
+    seconds: the union of the trace's kernel, copy and set intervals
+    (torch.profiler's Chrome trace, microseconds), with the kernels'
+    own union and the five kernels that took longest in all."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    spans, kern, names = [], [], {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
+            iv = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            spans.append(iv)
+            if cat == "kernel":
+                kern.append(iv)
+                nm = e.get("name", "?")[:40]
+                names[nm] = names.get(nm, 0.0) + float(e["dur"])
+
+    def union(ivs):
+        tot, end = 0.0, None
+        for a, b in sorted(ivs):
+            if end is None or a > end:
+                tot += b - a
+                end = b
+            elif b > end:
+                tot += b - end
+                end = b
+        return tot / 1e6
+    busy = union(spans)
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    return {"events": len(spans), "kernels": len(kern),
+            "busy_s": busy, "kernel_busy_s": union(kern),
+            "idle_share": (1 - busy / wall_s) if spans else None,
+            "top_kernels_ms": {k: round(v / 1e3, 3) for k, v in top}}
+
+
+def traced_steps(pcd, pk, pred, proof_1, rng, dev, phase):
+    """One warm step under each quotient tier inside device_trace (a
+    torch.profiler capture, written under chiprun_out/device_trace/ and
+    gzipped): the card's busy and idle shares of each step."""
+    import gzip
+    import shutil
+
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.utils.profiling import device_trace
+
+    F = pcd.ic.main_field
+    one, two = F.from_int(1), F.from_int(2)
+    default = msm_dispatch.QUOTIENT
+    out = {}
+    try:
+        for tier in ("host", "device"):
+            msm_dispatch.QUOTIENT = tier
+            logdir = os.path.join(HERE, "chiprun_out", "device_trace", tier)
+            sync(dev)
+            with device_trace(logdir):
+                t0 = time.perf_counter()
+                pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
+                sync(dev)
+                wall = time.perf_counter() - t0
+            path = os.path.join(logdir, "trace.json")
+            out[tier] = dict(card_busy(path, wall), step_s=wall)
+            with open(path, "rb") as src, gzip.open(path + ".gz",
+                                                     "wb") as dst:
+                shutil.copyfileobj(src, dst)
+            os.remove(path)
+    finally:
+        msm_dispatch.QUOTIENT = default
+    for tier, rec in out.items():
+        say(phase, f"device_trace of a warm step, {tier} quotient: "
+                   + json.dumps({k: (round(v, 4) if isinstance(v, float)
+                                     else v) for k, v in rec.items()}))
+    return out
+
+
+def quotient_step(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
+                  phase):
+    """One more warm step under QUOTIENT = "device": K1 and K4 once per
+    commitment MSM, K5, K6 and K7 launched, and the proof verifies.
+    Returns the step's launch counts."""
+    _, _, counts = knob_turns("QUOTIENT", pcd, pk, vk, pred, proof_1, rng,
+                              forms, counter, dev, phase, ("device",))
+    return counts
+
+
+def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     """The IVC chain of configs.<name> (the real cycle, on the card unless
-    `dev` says otherwise).  Returns the launch counts of the main path
-    (base case + warm step), the probe of the warm step, and with `turns`
-    sched_turns' result (else None)."""
+    `dev` says otherwise).  With `turns` (phase 4): the warm steps in
+    scheduler and quotient turns, and a traced warm step under each
+    quotient tier; else one more warm step under the device quotient.
+    Returns the launch counts of the main path (base case + warm step),
+    the probe of the warm step, and {"sched": knob_turns' result or None,
+    "quot_counts": the launch counts of a device-quotient warm step,
+    "trace": traced_steps' result or None, "chain": (pcd, pk)}."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
     from pcd_tpu_torch.pcd.api import FpPredicate
@@ -1001,10 +1173,27 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=()):
     # the host; K2 no longer runs on the path
     check_once_per_msm(base_counts, forms, "the base case")
     check_once_per_msm(step2, forms, "the warm step")
-    took = None
+    took = {"sched": None, "trace": None, "chain": (pcd, pk)}
     if turns:
-        took = sched_turns(pcd, pk, vk, pred, proof_1, rng, forms, counter,
-                           dev, phase, turns)
+        took["sched"] = knob_turns("SCHEDULER", pcd, pk, vk, pred, proof_1,
+                                   rng, forms, counter, dev, phase,
+                                   SCHED_TURNS)
+        # the device quotient's one-time set-up (matrices, root tables)
+        # in a step of its own, outside the turns
+        quotient_step(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
+                      phase)
+        with QuotientProbe() as qp:
+            took["quot"] = knob_turns("QUOTIENT", pcd, pk, vk, pred,
+                                      proof_1, rng, forms, counter, dev,
+                                      phase, QUOTIENT_TURNS)
+        took["quot_counts"] = took["quot"][2]
+        took["captured"] = qp.calls
+        if dev.type == "cuda":
+            took["trace"] = traced_steps(pcd, pk, pred, proof_1, rng, dev,
+                                         phase)
+    else:
+        took["quot_counts"] = quotient_step(pcd, pk, vk, pred, proof_1, rng,
+                                            forms, counter, dev, phase)
     return counts, probe, took
 
 
@@ -1089,6 +1278,254 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5,
                    f"{ms:.3f} ms, bound "
                    f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
                    f"{plain_ms:.0f} ms")
+
+
+class QuotientProbe:
+    """While in its `with`, keeps the first C++ quotient of each field
+    (keyed by its modulus): the z limbs and the A z, B z, C z limbs of
+    SpMatrices.apply_all_limbs, and native.hpoly's arguments and result.
+    Leaving the `with` restores both."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        import numpy as np
+
+        from pcd_tpu_torch import native
+
+        self._orig = (native.hpoly, native.SpMatrices.apply_all_limbs)
+
+        def hpoly(modulus, omega, coset_g, zh_inv, a, b, c, check_rows=0):
+            out = self._orig[0](modulus, omega, coset_g, zh_inv, a, b, c,
+                                check_rows=check_rows)
+            rec = self.calls.setdefault(modulus, {})
+            if "h" not in rec:
+                rec["h"] = (zh_inv, check_rows, out.copy())
+            return out
+
+        def apply_all_limbs(mats, z):
+            outs = self._orig[1](mats, z)
+            rec = self.calls.setdefault(mats.modulus, {})
+            if "abc" not in rec:
+                rec["z"] = np.array(z, dtype="<u8")
+                rec["abc"] = tuple(o.copy() for o in outs)
+            return outs
+
+        native.hpoly = hpoly
+        native.SpMatrices.apply_all_limbs = apply_all_limbs
+        return self
+
+    def __exit__(self, *exc):
+        from pcd_tpu_torch import native
+
+        native.hpoly, native.SpMatrices.apply_all_limbs = self._orig
+
+
+def rand_elems(shape, p, dev, gen):
+    """Random field elements below 2^(bits - 1) < p as (*shape, 10) int32
+    limbs on dev (any value below p is the Montgomery form of one)."""
+    import torch
+
+    w = torch.randint(-(1 << 31), 1 << 31, tuple(shape) + (10,),
+                      dtype=torch.int64, device=dev, generator=gen)
+    top = (1 << (p.bit_length() - 1 - 288)) - 1
+    w[..., 9] &= top
+    return w.to(torch.int32)
+
+
+def timed_plain(fn, dev):
+    """(result, host-clock ms) of one call of a plain version."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+# the real domains of the quotient: (side, points, transform batch)
+QUOTIENT_DOMAINS = (("main", 225_792, 3, "mnt4_groth16"),
+                    ("help", 31_360, 3, "mnt4_groth16"),
+                    ("main", 688_128, 2, "mnt4_gm17"),
+                    ("help", 107_520, 2, "mnt4_gm17"))
+
+
+def phase_quotient(results, took=None, dev="cuda", phase=10):
+    """The device quotient (ops/fft_tensor.py, ops/matvec_tensor.py): K5
+    level by level and K7 in every op exactly against their plain versions
+    on the four real domains, random inputs from a seed; K6 on the real
+    Groth16 circuits' matrices of phase 4's pk against its plain version
+    and the C++ matvec on a real warm step's z; the device h against the
+    C++ hpoly's h of that step, main and help; CUDA-event ms per kernel
+    and per quotient.  Appends the K5-K7 records and returns [(record,
+    chain, kernel, field name)] for their launches."""
+    import numpy as np
+    import torch
+
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, hpoly
+    from pcd_tpu_torch.ops.field import limbs_host, upload_limbs
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    cyc = M.mnt_cycle()
+    sides = {"main": cyc.main.Fr, "help": cyc.help.Fr}
+    pend = []
+    ops1 = PRODUCTS[1] * 2                     # multiply-adds per product
+    for side, n, batch, chain in QUOTIENT_DOMAINS:
+        F = sides[side]
+        t0 = time.perf_counter()
+        fctx = fft_ctx(F, n, dev)
+        f = fctx.f
+        t_ctx = time.perf_counter() - t0
+        a = rand_elems((batch, n), F.MODULUS, dev, gen)
+        src, perm, plain_ms = a, fctx.perm, 0.0
+        nbytes = (2 * batch * n + n) * 40 + n * 4
+        mads = 0
+        for r, m in fctx.levels:
+            got = fctx.ntt_level(src, fctx.tbl_fwd, perm, r, m)
+            want, ms_p = timed_plain(lambda: fctx.ntt_level_plain(
+                src, fctx.tbl_fwd, perm, r, m), dev)
+            plain_ms += ms_p
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 {F.NAME} n={n} level ({r}, {m}): "
+                                     f"kernel != plain")
+            mads += batch * n * (r - 1) * ops1
+            src, perm = got, None
+        if not torch.equal(fctx.ifft(src), a):
+            raise AssertionError(f"K5 {F.NAME} n={n}: ifft(fft(a)) != a")
+        ms = device_ms(lambda: fctx.fft(a), 3, dev)
+        form = (f"{F.NAME} n={n} x{batch}, one transform of "
+                f"{len(fctx.levels)} levels")
+        rec = record("ntt_level", form, 0, 0, ms, plain_ms, nbytes, mads)
+        results.append(rec)
+        pend.append((rec, chain, "ntt_level", F.NAME))
+        say(phase, f"K5 ntt_level {form} (radixes "
+                   f"{[r for r, _ in fctx.levels]}): every level exact "
+                   f"against plain, ifft(fft) = id; {ms:.3f} ms, bound "
+                   f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
+                   f"{plain_ms:.0f} ms; context with tables {t_ctx:.2f}s")
+        # K7: every op against its plain version; the record is the
+        # coset-table product at the transform's batch
+        x, y, z = (rand_elems((n,), F.MODULUS, dev, gen) for _ in range(3))
+        nc, ni = (n - 64) // 2, 40
+        r2, one = f.const(f.r * f.r, dev), f.const(1, dev)
+        zi = x[nc:nc + ni]
+        cases = {                      # (kernel, plain version)
+            "coset table": (lambda: f.vmul(a, fctx.coset_tbl),
+                            lambda: f.vmul_plain(a, fctx.coset_tbl)),
+            "scalar": (lambda: f.vmul(x, fctx.n_inv),
+                       lambda: f.vmul_plain(x, fctx.n_inv)),
+            "abc": (lambda: f.abc(x, y, z, fctx.n_inv),
+                    lambda: f.abc_plain(x, y, z, fctx.n_inv)),
+            "to_mont": (lambda: f.to_mont(x), lambda: f.vmul_plain(x, r2)),
+            "from_mont": (lambda: f.from_mont(x),
+                          lambda: f.vmul_plain(x, one)),
+            "sap": (lambda: f.sap(x[:nc], y[:nc], z[:nc], zi, n),
+                    lambda: f.sap_plain(x[:nc], y[:nc], z[:nc], zi, n)),
+        }
+        for name, (kern, plain) in cases.items():
+            got = kern()
+            want, ms_p = timed_plain(plain, dev)
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K7 {F.NAME} n={n} {name}: "
+                                         f"kernel != plain")
+            if name == "coset table":
+                plain_ms = ms_p
+        ms = device_ms(cases["coset table"][0], 5, dev)
+        form = f"{F.NAME} n={n} x{batch}, the coset-table product"
+        rec = record("fp_vec", form, 0, 0, ms, plain_ms,
+                     (2 * batch * n + n) * 40, batch * n * ops1)
+        results.append(rec)
+        pend.append((rec, chain, "fp_vec", F.NAME))
+        say(phase, f"K7 fp_vec {F.NAME} n={n}: every op ({', '.join(cases)})"
+                   f" exact against plain; the coset-table product x{batch} "
+                   f"{ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                   f"({rec['bound_by']}), plain {plain_ms:.0f} ms")
+    if took is None or "captured" not in took:
+        say(phase, "no phase 4 run: K6 and the quotients against the C++ "
+                   "tier need its pk and warm step; skipped")
+        return pend
+    pcd, pk = took["chain"]
+    captured = took["captured"]
+    cyc = pcd.ic.cycle
+    for side, spk in (("main", pk.main_pk), ("help", pk.help_pk)):
+        F = getattr(cyc, side).Fr
+        cap = captured[F.MODULUS]
+        mats = spk._dev_mats[str(dev)]
+        n = spk.domain_size
+        fctx = fft_ctx(F, n, dev)
+        f = fctx.f
+        z_mont = f.to_mont(upload_limbs(cap["z"], dev))
+        evs = torch.empty((3, n, 10), dtype=torch.int32, device=dev)
+        for k, m in enumerate(mats):
+            m.apply(z_mont, out=evs[k])
+            want, ms_p = timed_plain(lambda: m.apply_plain(z_mont), dev)
+            if not torch.equal(evs[k], want):
+                raise AssertionError(f"K6 {F.NAME} {side} matrix {k}: "
+                                     f"kernel != plain")
+            if not np.array_equal(limbs_host(f.from_mont(evs[k])),
+                                  cap["abc"][k]):
+                raise AssertionError(f"K6 {F.NAME} {side} matrix {k} != "
+                                     f"the C++ matvec")
+            lens = torch.diff(m.rowptr).cpu().numpy()
+            shape = (f"{m.n_rows} rows, {m.nnz} entries, row lengths mean "
+                     f"{lens.mean():.2f}, max {m.max_row}, "
+                     f"{int((lens == 0).sum())} empty, "
+                     f"{int((lens == 1).sum())} single")
+            if k == 0:
+                out_k = torch.empty_like(evs[0])
+                ms = device_ms(lambda: m.apply(z_mont, out=out_k), 5, dev)
+                nbytes = ((m.n_rows + 1) * 4 + m.nnz * 44 + m.n_cols * 40
+                          + m.n_rows * 40)
+                form = f"{F.NAME} Groth16 {side} A: {shape}"
+                rec = record("spmv_rows", form, 0, 0, ms, ms_p, nbytes,
+                             m.nnz * ops1)
+                results.append(rec)
+                pend.append((rec, "mnt4_groth16", "spmv_rows", F.NAME))
+                say(phase, f"K6 spmv_rows {form}: exact against plain and "
+                           f"the C++ CSR matvec; {ms:.3f} ms, bound "
+                           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+                           f"plain {ms_p:.0f} ms")
+            else:
+                say(phase, f"K6 spmv_rows {F.NAME} Groth16 {side} matrix "
+                           f"{'ABC'[k]} ({shape}): exact against plain and "
+                           f"the C++ matvec")
+        zh_inv, check_rows, h_cpp = cap["h"]
+        h = hpoly(fctx, evs[0], evs[1], evs[2], zh_inv, check_rows)
+        if not np.array_equal(limbs_host(h), h_cpp):
+            raise AssertionError(f"device h != C++ hpoly's h ({side})")
+
+        def quotient():
+            zm = f.to_mont(upload_limbs(cap["z"], dev))
+            ev = torch.empty((3, n, 10), dtype=torch.int32, device=dev)
+            for k, m in enumerate(mats):
+                m.apply(zm, out=ev[k])
+            return hpoly(fctx, ev[0], ev[1], ev[2], zh_inv, check_rows)
+        from pcd_tpu_torch.ops import ec
+
+        counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
+        ec.reset_launch_counts()
+        quotient()
+        per = {f"{k}[{fm}]": v for (k, fm), v in counter().items()}
+        q_ms = device_ms(quotient, 3, dev)
+        hp_ms = device_ms(lambda: hpoly(fctx, evs[0], evs[1], evs[2],
+                                        zh_inv, check_rows), 3, dev)
+        t0 = time.perf_counter()
+        native.hpoly(F.MODULUS, fctx.domain.omega, fctx.domain.coset_shift,
+                     zh_inv, *cap["abc"], check_rows=check_rows)
+        cpp_ms = (time.perf_counter() - t0) * 1e3
+        say(phase, f"Groth16 {side} quotient n={n}: device h == C++ "
+                   f"hpoly's h on the warm step's z; device quotient (z "
+                   f"upload, K7, 3 x K6, hpoly) {q_ms:.3f} ms, hpoly "
+                   f"{hp_ms:.3f} ms (CUDA events), C++ hpoly "
+                   f"{cpp_ms:.1f} ms wall; launches per quotient "
+                   + json.dumps(per))
+    return pend
 
 
 class SquareChain:
@@ -1392,12 +1829,12 @@ def phase_marlin_chain(dev=None, phase=8):
 
 
 def main(argv):
-    phases = {1, 2, 3, 4, 6, 7, 9}
+    phases = {1, 2, 3, 4, 6, 7, 9, 10}
     if "--phases" in argv:
         asked = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
         if asked - phases - {8} or (8 in asked and asked - {1, 8}):
-            print(f"chip_smoke: phases to choose: 1, 2, 3, 4, 6, 7, 9, or "
-                  f"8 alone (5 runs with 4 and 6); asked {sorted(asked)}",
+            print(f"chip_smoke: phases to choose: 1, 2, 3, 4, 6, 7, 9, 10, "
+                  f"or 8 alone (5 runs with 4 and 6); asked {sorted(asked)}",
                   file=sys.stderr)
             return 2
         phases = asked | {1}
@@ -1422,20 +1859,31 @@ def main(argv):
         t0 = time.perf_counter()
         phase_devsched(results)
         say(9, f"device scheduler: {time.perf_counter() - t0:.1f}s")
-    chain_counts = []
-    for ph in sorted(set(CHAINS) & phases):
+    chain_counts, quot_counts, took4, pend = [], {}, None, []
+    for ph in sorted(set(CHAINS) & phases | ({10} & phases),
+                     key=lambda ph: 4.5 if ph == 10 else ph):
+        if ph == 10:               # after phase 4: its pk and warm step
+            t0 = time.perf_counter()
+            pend = phase_quotient(results, took4)
+            say(10, f"device quotient: {time.perf_counter() - t0:.1f}s")
+            continue
         for name in CHAINS[ph]:
             t0 = time.perf_counter()
-            counts, probe, took = phase_chain(
-                name, ph, turns=SCHED_TURNS if ph == 4 else ())
+            counts, probe, took = phase_chain(name, ph, turns=ph == 4)
             chain_counts.append(counts)
-            if took is not None:   # sched_digits' launches on the path
+            quot_counts[name] = took["quot_counts"]
+            if took["sched"] is not None:   # sched_digits on the path
+                took4 = took
                 for rec in results:
                     if rec["name"].startswith("sched_digits["):
-                        rec["launches"] = took[1]
+                        rec["launches"] = took["sched"][1]
             phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
             say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
                     f"first-launch kernel checks")
+    for rec, chain, kernel, field in pend:   # K5-K7 on a device-quotient
+        got = quot_counts.get(chain)         # warm step of their chain
+        rec["launches"] = None if got is None else sum(
+            v for (k, f), v in got.items() if k == kernel and f == field)
     if 7 in phases:
         t0 = time.perf_counter()
         phase_marlin(results)

@@ -4,7 +4,11 @@ and constraints.rs:10-30).
 Unlike the reference's trait-generic form, implementations here are *objects*
 configured with a concrete TE curve (TPU-first stance: configs are data, not
 types).  Each CRH object provides both the native methods and the in-circuit
-gadget methods (the reference splits these into two traits)."""
+gadget methods (the reference splits these into two traits).
+
+The port's copy of `pcd_tpu/crh/api.py`; the pcd_tpu paths
+named here are the JAX package's modules.
+"""
 
 from __future__ import annotations
 

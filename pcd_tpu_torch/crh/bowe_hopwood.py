@@ -9,6 +9,9 @@ Layout parity with the reference (consensus-critical):
     16^i * base (4 doublings between slots, mod.rs:71-73)
   - chunk (c0,c1,c2) encodes (1 + c0 + 2*c1) * (1 - 2*c2) * slot_base
   - output = x-coordinate of the affine sum (mod.rs:151)
+
+The port's copy of `pcd_tpu/crh/bowe_hopwood.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

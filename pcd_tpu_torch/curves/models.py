@@ -11,6 +11,9 @@ quadratic twist over Fq^{k/2} by the tower generator u), and ate-pairing
 parameters.  `CycleConfig` pairs two of them (main/help) such that
 main.Fr == help.Fq and vice versa (the EC-cycle PCD requirement,
 reference src/ec_cycle_pcd/mod.rs:24-33).
+
+The port's copy of `pcd_tpu/curves/models.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -4,6 +4,9 @@ Used by the variable-length CRH family (reference:
 src/variable_length_crh/{pedersen,bowe_hopwood}/mod.rs operate on
 `ark-ec` twisted_edwards_extended points).  Addition is the standard
 complete TE law (complete when a is a square and d a non-square).
+
+The port's copy of `pcd_tpu/curves/twisted_edwards.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -16,6 +16,9 @@ inputs as *bits* (Booleans over CF), grouped per F-element:
   - BooleanInputVar.from_field_elements: reinterpret in-circuit CF values
     bitwise as F elements (used by MainCircuit to feed the prior-proof
     verifier).
+
+The port's copy of `pcd_tpu/gadgets/inputs.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -7,6 +7,9 @@ Variable-point addition uses the Renes–Costello–Batina complete projective
 formulas (eprint 2015/1060, Algorithm 1 — arbitrary a), which handle
 identity and doubling uniformly; FpVar constant-folding automatically turns
 mixed (variable + constant) additions into cheaper circuits.
+
+The port's copy of `pcd_tpu/gadgets/sw.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -19,6 +19,9 @@
 // ABI: plain C, arrays of uint64 limbs (little-endian, canonical — NOT
 // Montgomery), driven from Python via ctypes (pcd_tpu/native/__init__.py).
 // Build: g++ -O3 -shared -fPIC pcd_native.cpp -o libpcdnative.so
+//
+// The port's copy of `pcd_tpu/native/pcd_native.cpp`; the pcd_tpu paths
+// named here are the JAX package's modules.
 
 #include <cstdint>
 #include <cstring>

@@ -35,16 +35,12 @@ curve (`launch_counts`).
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from .field import INF_BIT, NLIMB, FieldCtx, ints_to_limbs
-
-_LAUNCHES: Counter = Counter()   # (kernel, curve name) -> CUDA launches
-_PLAIN: Counter = Counter()      # (kernel, curve name) -> plain-version calls
+from .field import _LAUNCHES, _PLAIN, INF_BIT, NLIMB, FieldCtx, ints_to_limbs
 
 
 def launch_counts() -> dict:

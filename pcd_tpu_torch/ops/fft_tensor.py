@@ -1,0 +1,242 @@
+"""Mixed-radix NTT over prime-field limb tensors, and the provers' device
+quotient: the counterpart of `pcd_tpu/ops/fft_tensor.py` (FFTTensorCtx,
+fft_ctx).
+
+The plan is the reference's: the domain's prime factors (radixes 2..31,
+poly/domain.py) taken bottom-up as levels (r, m), each building transforms
+of length r m from r transforms of length m, after a mixed-radix digit
+reversal of the input (the reference's `_plan` and `_input_permutation`,
+here `plan` and `input_permutation`), with one table of
+root powers per direction and two coset tables.  Values are (batch, n,
+10) int32 Montgomery tensors in the layout of ops/field.py.
+
+On a card every level is one launch of K5 `ntt_level` (csrc/ntt.cu); the
+digit reversal is folded into the first level's loads, and the levels
+alternate between two buffers.  The scalings by n^-1 and by the coset
+tables are K7 (FieldCtx.vmul).  On the CPU each level runs its plain
+version, the reference's `_transform` stage in torch on the plain
+products of ops/field.py.
+
+`hpoly` is the quotient h = (A B - C) / Z_H on a coset, the arguments and
+meaning of the C++ tier's `native.hpoly` with the evaluations already on
+the device: inverse transform, coset forward transform, pointwise
+(a b - c) Z_H^-1, coset inverse transform; `b is a` is GM17's squaring
+case.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..poly.domain import EvaluationDomain
+from .field import _LAUNCHES, _PLAIN, NLIMB, FieldCtx, ints_to_limbs
+
+
+def level_twiddles(n: int, r: int, m: int) -> np.ndarray:
+    """Twiddle rows of level (r, m) of an n-point transform, (r, r m)
+    int64: row j, column k holds (stride j k) mod n, stride = n / (r m),
+    computed as K5 computes it: stride ((j k) mod r m), the residue
+    stepped over j by adding k and subtracting r m once."""
+    nl = r * m
+    k = np.arange(nl, dtype=np.int64)
+    e = np.zeros(nl, dtype=np.int64)
+    rows = [e]
+    for _ in range(1, r):
+        e = e + k
+        e = np.where(e >= nl, e - nl, e)
+        rows.append(e)
+    return np.stack(rows) * (n // nl)
+
+
+def plan(factors) -> list:
+    """Bottom-up levels [(r, m)] of a transform over the domain's prime
+    factors (ascending): level (r, m) transforms length r m from r
+    transforms of length m.  The recursion splits by the smallest factor
+    first, so execution runs the factors reversed."""
+    levels, m = [], 1
+    for r in reversed(factors):
+        levels.append((r, m))
+        m *= r
+    return levels
+
+
+def input_permutation(n: int, factors) -> np.ndarray:
+    """(n,) int32 digit-reversal permutation matching the recursive
+    decimation: mixed radix over `factors`, not a bit reversal."""
+    def rec(ix, fs):
+        if not fs:
+            return ix
+        r = fs[0]
+        return np.concatenate([rec(ix[j::r], fs[1:]) for j in range(r)])
+
+    return np.asarray(rec(np.arange(n), list(factors)), dtype=np.int32)
+
+
+class FFTTensorCtx:
+    """The transforms of one domain of `size` points of F, on `device`."""
+
+    def __init__(self, F, size: int, device):
+        self.domain = d = EvaluationDomain(F, size)
+        self.n = size
+        self.device = torch.device(device)
+        self.f = FieldCtx(F.MODULUS, name=F.NAME)
+        self.levels = plan(d.factors)
+        self.perm = torch.from_numpy(input_permutation(size, d.factors)).to(
+            self.device)
+        # root power tables (Montgomery form)
+        self.tbl_fwd = self._pow_table(d.omega)
+        self.tbl_inv = self._pow_table(d.omega_inv)
+        self.n_inv = self.f.mont(d.n_inv, self.device)
+        self.coset_tbl = self._pow_table(d.coset_shift)
+        self.coset_inv_tbl = self._pow_table(d.coset_shift_inv)
+
+    def _pow_table(self, w: int) -> torch.Tensor:
+        """(n, 10) Montgomery w^i, i < n, built on the device by doubling:
+        rows [s, 2 s) are rows [0, s) times w^s (K7)."""
+        f, dev, n = self.f, self.device, self.n
+        t = torch.empty((n, NLIMB), dtype=torch.int32, device=dev)
+        t[0] = f.mont(1, dev)[0]
+        s = 1
+        while s < n:
+            k = min(s, n - s)
+            t[s:s + k] = f.vmul(t[:k], f.mont(pow(w, s, f.p), dev))
+            s += k
+        return t
+
+    # -- K5 -------------------------------------------------------------------
+    def ntt_level(self, src, tbl, perm, r: int, m: int, out=None):
+        """K5: one level (r, m) of src (batch, n, 10) against the root
+        table tbl (n, 10), the input read through perm (n,) int32 when
+        given; into `out` (a buffer other than src) or a new tensor."""
+        n = self.n
+        if src.dim() != 3 or src.shape[1] != n or tuple(tbl.shape) != (
+                n, NLIMB) or n % (r * m):
+            raise ValueError("ntt_level: src (batch, n, 10), tbl (n, 10), "
+                             "r m dividing n")
+        dev = src.device
+        key = ("ntt_level", self.f.name)
+        if dev.type == "cpu":
+            _PLAIN[key] += 1
+            res = self.ntt_level_plain(src, tbl, perm, r, m)
+            if out is None:
+                return res
+            out.copy_(res)
+            return out
+        if dev.type != "cuda":
+            raise ValueError(f"ntt_level: unsupported device {dev}")
+        if out is None:
+            out = torch.empty_like(src)
+        for t in (src, tbl, out) + (() if perm is None else (perm,)):
+            if t.device != dev or t.dtype != torch.int32 \
+                    or not t.is_contiguous() or t.data_ptr() % 8:
+                raise ValueError(f"ntt_level: contiguous int32 on {dev} "
+                                 f"expected")
+        if out.shape != src.shape or out.data_ptr() == src.data_ptr():
+            raise ValueError("ntt_level: out must be a distinct buffer of "
+                             "src's shape")
+        from .kernels import lib
+
+        rc = lib("ntt").pcd_ntt_level(
+            src.data_ptr(), out.data_ptr(), tbl.data_ptr(),
+            None if perm is None else perm.data_ptr(), n, src.shape[0], r,
+            m, self.f.kconsts.ctypes.data_as(ctypes.c_void_p),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ntt_level launch failed: CUDA error {rc}")
+        _LAUNCHES[key] += 1
+        return out
+
+    def ntt_level_plain(self, src, tbl, perm, r: int, m: int):
+        """The plain version of K5: the reference's stage, out[g, k] =
+        sum_j T[idx[j, k]] b[g, j, k mod m], on the digit products."""
+        f, n, nl = self.f, self.n, r * m
+        x = src if perm is None else src[:, perm.long()]
+        X = f.to_plain(x)                            # (nd, batch, n)
+        nd, batch = X.shape[0], X.shape[1]
+        B = X.reshape(nd, batch, n // nl, r, m)
+        idx = torch.from_numpy(level_twiddles(n, r, m)[1:]).to(src.device)
+        T = f.to_plain(tbl[idx])                     # (nd, r - 1, nl)
+        acc = B[:, :, :, 0].repeat(1, 1, 1, r)       # T[0] = 1
+        for j in range(1, r):
+            term = f.mul(T[:, j - 1].reshape(nd, 1, 1, nl),
+                         B[:, :, :, j].repeat(1, 1, 1, r))
+            acc = f.add(acc, term)
+        return f.from_plain(acc.reshape(nd, batch, n))
+
+    def _transform(self, a, tbl):
+        """a (batch, n, 10) Montgomery coefficients -> evaluations: K5
+        once per level, between two buffers."""
+        if a.dim() == 2:
+            return self._transform(a[None], tbl)[0]
+        bufs = (torch.empty_like(a), torch.empty_like(a))
+        src, perm = a, self.perm
+        for i, (r, m) in enumerate(self.levels):
+            src = self.ntt_level(src, tbl, perm, r, m, out=bufs[i % 2])
+            perm = None
+        return src
+
+    # -- public ops ----------------------------------------------------------
+    def fft(self, a):
+        return self._transform(a, self.tbl_fwd)
+
+    def ifft(self, a):
+        return self.f.vmul(self._transform(a, self.tbl_inv), self.n_inv)
+
+    def coset_fft(self, a):
+        return self.fft(self.f.vmul(a, self.coset_tbl))
+
+    def coset_ifft(self, a):
+        return self.f.vmul(self.ifft(a), self.coset_inv_tbl)
+
+    # -- host conversions ----------------------------------------------------
+    def encode(self, coeffs) -> torch.Tensor:
+        """Canonical ints (at most n) -> (n, 10) Montgomery on the
+        device, zero-padded."""
+        assert len(coeffs) <= self.n
+        f = self.f
+        vals = [int(c) * f.r % f.p for c in coeffs]
+        vals += [0] * (self.n - len(vals))
+        return torch.from_numpy(ints_to_limbs(vals).view(np.int32)).to(
+            self.device)
+
+    def decode(self, arr) -> list:
+        """Montgomery limbs -> canonical ints (flat)."""
+        return self.f.decode_ints(arr.cpu().numpy() if isinstance(
+            arr, torch.Tensor) else arr)
+
+
+@lru_cache(maxsize=None)
+def _fft_ctx(F, size: int, device: torch.device) -> FFTTensorCtx:
+    return FFTTensorCtx(F, size, device)
+
+
+def fft_ctx(F, size: int, device) -> FFTTensorCtx:
+    """The cached FFTTensorCtx of (F, size) on `device`."""
+    return _fft_ctx(F, size, torch.device(device))
+
+
+def hpoly(fctx: FFTTensorCtx, a, b, c, zh_inv: int, check_rows: int = 0):
+    """The quotient h = coset_ifft((coset_fft(ifft(A)) coset_fft(ifft(B))
+    - coset_fft(ifft(C))) zh_inv) of domain evaluations a, b, c, (n, 10)
+    Montgomery tensors on fctx's device (`b is a`: the squaring case,
+    one transform fewer).  check_rows > 0 raises ValueError where
+    a_j b_j != c_j for some j < check_rows (the replayed-witness check).
+    Returns h as (n, 10) canonical limbs on the device, the C++ tier's
+    output values."""
+    f, n = fctx.f, fctx.n
+    for t in (a, b, c):
+        if tuple(t.shape) != (n, NLIMB):
+            raise ValueError(f"hpoly: (n, 10) evaluations expected, n = {n}")
+    sq = b is a
+    if check_rows:
+        k = check_rows
+        bad = f.abc(a[:k], b[:k], c[:k], f.mont(1, a.device))
+        if bool(bad.any()):
+            raise ValueError("unsatisfied constraint (replayed witness)")
+    ap = fctx.coset_fft(fctx.ifft(torch.stack((a, c) if sq else (a, b, c))))
+    h = f.abc(ap[0], ap[0] if sq else ap[1], ap[-1], f.mont(zh_inv, a.device))
+    return f.from_mont(fctx.coset_ifft(h))

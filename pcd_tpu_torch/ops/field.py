@@ -18,9 +18,18 @@ exact equality.  The plain versions carry 16-bit digits in int64
 tensors (torch has no general u64 multiply, and an int64 product of two
 32-bit limbs overflows); every column sum they form stays below 2^45.
 They serve CPU tensors and are the kernels' yardstick on the card.
+
+K7 `fp_vec` (csrc/fp_vec.cu) runs the quotient pipeline's elementwise
+prime-field operations on the card (FieldCtx.vmul, abc, to_mont,
+from_mont, sap); for a CPU tensor each runs its plain version here.  The
+launch counters of every kernel wrapper of the port live here too (ops/ec.py
+reads and resets them).
 """
 
 from __future__ import annotations
+
+import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -31,11 +40,28 @@ ND = 2 * NLIMB              # 16-bit digits per element (plain versions)
 _M16 = 0xFFFF
 INF_BIT = 1 << 31           # infinity flag: bit 31 of X's top limb
 
+_LAUNCHES: Counter = Counter()   # (kernel, form) -> CUDA launches
+_PLAIN: Counter = Counter()      # (kernel, form) -> plain-version calls
+
 
 def ints_to_limbs(vals) -> np.ndarray:
     """Canonical ints -> (n, 10) u32 limbs."""
     buf = b"".join(int(v).to_bytes(4 * NLIMB, "little") for v in vals)
     return np.frombuffer(buf, dtype="<u4").reshape(len(vals), NLIMB).copy()
+
+
+def upload_limbs(limbs: np.ndarray, device) -> torch.Tensor:
+    """(n, 5) u64 canonical limb rows (the C++ tier's layout) -> (n, 10)
+    int32 limbs on `device`: the same little-endian bytes."""
+    w = np.ascontiguousarray(limbs, dtype="<u8").view("<i4").reshape(
+        limbs.shape[0], NLIMB)
+    return torch.from_numpy(w if w.flags.writeable else w.copy()).to(device)
+
+
+def limbs_host(t: torch.Tensor) -> np.ndarray:
+    """(n, 10) int32 canonical limbs on any device -> (n, 5) u64 numpy
+    rows, the C++ tier's layout (a view of the fetched bytes)."""
+    return np.ascontiguousarray(t.cpu().numpy()).view("<u8")
 
 
 def limbs_to_ints(arr) -> list:
@@ -53,15 +79,23 @@ class FieldCtx:
     nr a small int of the prime field: 17 for MNT4's Fq2, 5 for MNT6's
     Fq3)."""
 
-    def __init__(self, p: int, d: int = 1, nr: int = 0):
+    def __init__(self, p: int, d: int = 1, nr: int = 0, name: str = ""):
         assert p % 2 == 1 and 2 < p.bit_length() <= 300
         assert d in (1, 2, 3) and (d == 1 or 0 < nr < 1 << 16)
         self.p, self.d, self.nr = p, d, nr
+        self.name = name or f"{p.bit_length()}-bit p"    # counter key
         self.r = (1 << R_BITS) % p
         self.rinv = pow(1 << R_BITS, -1, p)
         self.n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)    # kernels (CIOS)
         self.p_limbs = ints_to_limbs([p])[0]
+        # FieldConsts of csrc/field.cuh for the prime-field kernels (no
+        # curve constants): p, n0, nr, one = R mod p
+        self.kconsts = np.ascontiguousarray(np.concatenate([
+            self.p_limbs, np.array([self.n0, nr], dtype=np.uint32),
+            ints_to_limbs([self.r])[0],
+            np.zeros(9 * NLIMB, dtype=np.uint32)]), dtype=np.uint32)
         self._dig = {}
+        self._consts = {}
         self._plain_setup()
 
     # -- host conversions -------------------------------------------------
@@ -194,6 +228,138 @@ class FieldCtx:
         return from_digits(d)
 
 
+    # -- K7 fp_vec: elementwise prime-field ops (d = 1) ---------------------
+    # Operands are (..., 10) int32 limbs, contiguous; the kernel for CUDA
+    # tensors, the plain version (the digit products above) for CPU ones.
+    FPV_MUL, FPV_ABC, FPV_SAP = 0, 1, 2
+
+    def const(self, v: int, device) -> torch.Tensor:
+        """(1, 10) int32 limbs of v mod p as they are (pass x R mod p for
+        a Montgomery constant), cached per device."""
+        key = (v % self.p, str(device))
+        t = self._consts.get(key)
+        if t is None:
+            t = torch.from_numpy(ints_to_limbs([key[0]]).view(np.int32)
+                                 ).to(device)
+            self._consts[key] = t
+        return t
+
+    def mont(self, v: int, device) -> torch.Tensor:
+        """(1, 10) Montgomery limbs of v (v R mod p)."""
+        return self.const(v * self.r, device)
+
+    def vmul(self, a, b):
+        """a (..., rows, 10) times b, a (rows, 10) table or a (1, 10)
+        element, broadcast over a's leading axes: Montgomery products."""
+        if b.dim() != 2 or b.shape[0] not in (1, a.shape[-2]):
+            raise ValueError("vmul: b must be (rows, 10) or (1, 10)")
+        if a.device.type == "cpu":
+            return self._plain("fp_vec", lambda: self.vmul_plain(a, b))
+        out = torch.empty_like(a)
+        self._fp_vec(self.FPV_MUL, out.numel() // NLIMB, b.shape[0], 0,
+                     (a, b, None, None), (out, None, None))
+        return out
+
+    def abc(self, a, b, c, s):
+        """(a b - c) s elementwise, a, b, c of one shape, s (1, 10)."""
+        if not (a.shape == b.shape == c.shape) or tuple(s.shape) != (1,
+                                                                     NLIMB):
+            raise ValueError("abc: a, b, c of one shape and s (1, 10)")
+        if a.device.type == "cpu":
+            return self._plain("fp_vec", lambda: self.abc_plain(a, b, c, s))
+        out = torch.empty_like(a)
+        self._fp_vec(self.FPV_ABC, out.numel() // NLIMB, 1, 0, (a, b, c, s),
+                     (out, None, None))
+        return out
+
+    def to_mont(self, a):
+        """Canonical limbs -> Montgomery (a product by R^2 mod p)."""
+        return self.vmul(a, self.const(self.r * self.r, a.device))
+
+    def from_mont(self, a):
+        """Montgomery limbs -> canonical (a product by 1)."""
+        return self.vmul(a, self.const(1, a.device))
+
+    def sap(self, az, bz, cz, zi, n: int):
+        """GM17's SAP evaluations on a domain of n points from the R1CS
+        row evaluations az, bz, cz (nc, 10) and the instance values zi
+        (ni, 10), all Montgomery, as gm17/native.py builds them: a_ev
+        rows 2j, 2j + 1 = az + bz, az - bz; c_ev rows 4 cz + w, w with
+        w = (az - bz)^2; rows 2 nc + i: zi, zi^2; zero above.  Returns
+        (a_ev, c_ev, ext), ext (nc + ni, 10) the w and zi^2 values, the
+        assignment's SAP extension."""
+        nc, ni = az.shape[0], zi.shape[0]
+        if bz.shape != az.shape or cz.shape != az.shape \
+                or 2 * nc + ni > n:
+            raise ValueError("sap: az, bz, cz (nc, 10), 2 nc + ni <= n")
+        if az.device.type == "cpu":
+            return self._plain("fp_vec", lambda: self.sap_plain(
+                az, bz, cz, zi, n))
+        dev = az.device
+        a_ev = torch.empty((n, NLIMB), dtype=torch.int32, device=dev)
+        c_ev = torch.empty_like(a_ev)
+        ext = torch.empty((nc + ni, NLIMB), dtype=torch.int32, device=dev)
+        self._fp_vec(self.FPV_SAP, n, nc, ni, (az, bz, cz, zi),
+                     (a_ev, c_ev, ext))
+        return a_ev, c_ev, ext
+
+    # the plain versions of K7, on the digit products above
+    def vmul_plain(self, a, b):
+        B = self.to_plain(b)
+        B = B.reshape((B.shape[0],) + (1,) * (a.dim() - 2) + (b.shape[0],))
+        return self.from_plain(self.mul(self.to_plain(a), B))
+
+    def abc_plain(self, a, b, c, s):
+        return self.from_plain(self.mul(
+            self.sub(self.mul(self.to_plain(a), self.to_plain(b)),
+                     self.to_plain(c)), self.to_plain(s)))
+
+    def sap_plain(self, az, bz, cz, zi, n):
+        A, B, C, Z = (self.to_plain(t) for t in (az, bz, cz, zi))
+        d = self.sub(A, B)
+        w = self.mul(d, d)
+        c2 = self.add(C, C)
+        c0 = self.add(self.add(c2, c2), w)
+        zsq = self.mul(Z, Z)
+        nc, ni = az.shape[0], zi.shape[0]
+        a_ev = torch.zeros((n, NLIMB), dtype=torch.int32, device=az.device)
+        c_ev = torch.zeros_like(a_ev)
+        a_ev[0:2 * nc:2] = self.from_plain(self.add(A, B))
+        a_ev[1:2 * nc:2] = self.from_plain(d)
+        a_ev[2 * nc:2 * nc + ni] = zi
+        c_ev[0:2 * nc:2] = self.from_plain(c0)
+        c_ev[1:2 * nc:2] = self.from_plain(w)
+        c_ev[2 * nc:2 * nc + ni] = self.from_plain(zsq)
+        return a_ev, c_ev, self.from_plain(torch.cat([w, zsq], dim=-1))
+
+    def _plain(self, kernel, fn):
+        _PLAIN[(kernel, self.name)] += 1
+        return fn()
+
+    def _fp_vec(self, op, n, nb, ni, ins, outs):
+        """Launch K7 on the current stream of the operands' card."""
+        dev = outs[0].device
+        if dev.type != "cuda" or self.d != 1:
+            raise ValueError(f"fp_vec: a prime field on a CUDA device, not "
+                             f"d = {self.d} on {dev}")
+        for t in ins + outs:
+            if t is not None and (t.device != dev or t.dtype != torch.int32
+                                  or not t.is_contiguous()
+                                  or t.shape[-1] != NLIMB
+                                  or t.data_ptr() % 8):
+                raise ValueError("fp_vec: contiguous 8-byte aligned (..., "
+                                 f"10) int32 operands on {dev} expected")
+        from .kernels import lib
+
+        ptrs = [None if t is None else t.data_ptr() for t in ins + outs]
+        rc = lib("fp_vec").pcd_fp_vec(
+            op, n, nb, ni, *ptrs, self.kconsts.ctypes.data_as(
+                ctypes.c_void_p), torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fp_vec launch failed: CUDA error {rc}")
+        _LAUNCHES[("fp_vec", self.name)] += 1
+
+
 def carry(t):
     """Propagate carries (signed: arithmetic shifts floor) down the digit
     axis, one row after the other: rows 0..n-2 end in [0, 2^16), the last
@@ -239,7 +405,9 @@ def to_digits(x: torch.Tensor) -> torch.Tensor:
 
 
 def from_digits(d: torch.Tensor) -> torch.Tensor:
-    """(20, ...) normalized digits -> (..., 10) int32 limbs."""
+    """(20, ...) normalized digits -> (..., 10) int32 limbs, contiguous
+    (the layout the kernels take)."""
     d = d.movedim(0, -1)
     v = d[..., 0::2] | (d[..., 1::2] << 16)
-    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(
+        torch.int32).contiguous()

@@ -22,12 +22,15 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh")
+HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh", "rows.cuh")
 SOURCES = {"madd_accumulate": "madd_accumulate.cu",
            "complete_add": "complete_add.cu",
            "madd": "madd.cu",
            "bucket_finish": "bucket_finish.cu",
-           "sched_digits": "sched_digits.cu"}
+           "sched_digits": "sched_digits.cu",
+           "ntt": "ntt.cu",
+           "spmv": "spmv.cu",
+           "fp_vec": "fp_vec.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -105,6 +108,11 @@ ENTRIES = {
                       ("pcd_finish_block", _ci, [])],
     "sched_digits": [("pcd_sched_digits", _ci,
                       [_vp, _cl, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp])],
+    "ntt": [("pcd_ntt_level", _ci,
+             [_vp, _vp, _vp, _vp, _cl, _ci, _ci, _ci, _vp, _vp])],
+    "spmv": [("pcd_spmv_rows", _ci, [_vp, _vp, _vp, _vp, _vp, _cl, _vp, _vp])],
+    "fp_vec": [("pcd_fp_vec", _ci, [_ci, _cl, _cl, _cl, _vp, _vp, _vp, _vp,
+                                    _vp, _vp, _vp, _vp, _vp])],
 }
 
 

@@ -13,6 +13,9 @@ Construction summary (reference data_structures.rs:85-393):
 Shape stability: both circuits synthesize identical structure for default
 and real values (the reference's setup path relies on the same property:
 mod.rs:58-68 passes None everywhere).
+
+The port's copy of `pcd_tpu/pcd/ec_cycle.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

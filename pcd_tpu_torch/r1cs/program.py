@@ -24,6 +24,9 @@ External inputs are provided per proof by the circuit's
 `external_inputs()` (flattened leaf values in allocation order); the
 program verifies at compile time that replaying the recorded inputs
 reproduces the recorded witness exactly.
+
+The port's copy of `pcd_tpu/r1cs/program.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -14,6 +14,9 @@ Design (TPU-first, not a port):
     follow instance columns, matching the Groth16/GM17 QAP convention.
   - The bulk consumers (witness vector, sparse matrices) are exported as
     numpy arrays feeding the JAX device path.
+
+The port's copy of `pcd_tpu/r1cs/system.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -15,6 +15,9 @@ A SNARK object (e.g. Groth16 bound to a curve config) provides:
 A SNARKVerifierGadget (the in-circuit counterpart over the *other* field of
 the cycle) provides the SNARKGadget surface (SURVEY.md D10):
   vk_var / proof_var / input_var allocation, verify(), repack_input(), ...
+
+The port's copy of `pcd_tpu/snark/api.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

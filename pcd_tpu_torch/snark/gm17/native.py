@@ -24,11 +24,14 @@ ability with Groth16 inside the PCD is what the mixed configs test):
                    * e(C, H^delta)
     (2) e(A, H^gamma) == e(G^gamma, B)
 
-The host tier (the C++ CSR matvec, the SAP evaluations and the fused
-squaring quotient) runs the prove while the commitment MSMs of circuits
-with at least STREAM_MIN SAP variables go to the stream MSM
-(ops/msm_stream.py) on `device`: the CUDA kernels on a card, their plain
-versions on the CPU.
+The quotient runs on the tier msm_dispatch.QUOTIENT names: "host", the
+C++ CSR matvec, the SAP evaluations and the fused squaring quotient, or
+"device", the reference's device tier (its `_use_device` branch of
+`prove`) on `device`: the sparse matvec (ops/matvec_tensor.py), the SAP
+evaluations (K7) and the squaring coset pipeline (ops/fft_tensor.py).
+Meanwhile the commitment MSMs of circuits with at least STREAM_MIN SAP
+variables go to the stream MSM (ops/msm_stream.py) on `device`: the CUDA
+kernels on a card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -251,11 +254,29 @@ class GM17:
         futs["c_query"] = futs.pop(c_nm)
         return futs
 
+    def _stream_launch_bg(self, pk, z_ext, n_inst):
+        """_stream_launch from a background thread when the SAP-extended
+        assignment reaches STREAM_MIN: returns its future, else None."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if z_ext.shape[0] < self.STREAM_MIN:
+            return None
+        ex = ThreadPoolExecutor(max_workers=1)
+        fut = ex.submit(self._stream_launch, pk, z_ext, n_inst)
+        ex.shutdown(wait=False)
+        return fut
+
     def _stream_launch_h(self, pk, futs, h_limbs):
-        """Enqueue the h-query MSM once the quotient limbs land."""
+        """Enqueue the h-query MSM once the quotient limbs land (host
+        limbs, or the device quotient's tensor, which the side stream
+        reads after the quotient's stream has computed it)."""
+        import torch
+
         from ..msm_dispatch import side_stream, stream_msm_async
 
-        with side_stream(self, self.device), span("stream_dispatch_h"):
+        reads = (h_limbs,) if isinstance(h_limbs, torch.Tensor) else ()
+        with side_stream(self, self.device, reads), \
+                span("stream_dispatch_h"):
             futs["h_query"] = stream_msm_async(pk, "h_query", self.cfg.g1,
                                                self.Fr.BITS, h_limbs,
                                                self.device)
@@ -299,8 +320,12 @@ class GM17:
 
         with span("gm17/h_poly"):
             from ... import native as _nat
+            from ..msm_dispatch import quotient_tier
 
-            if _nat.available() and p.bit_length() <= 320:
+            if quotient_tier() == "device":
+                z, h, futs = self._h_device(pk, rows3, z, n_inst, n_cons,
+                                            domain, replayed)
+            elif _nat.available() and p.bit_length() <= 320:
                 z, h, futs = self._h_limbs(pk, _nat, rows3, z, n_inst,
                                            n_cons, domain, replayed)
             else:
@@ -339,16 +364,10 @@ class GM17:
             zi = np.ascontiguousarray(z_limbs[:n_inst])
             zisq = _nat.vec_op(p, "mul", zi, zi) if n_inst else zi
             z_ext = np.concatenate([z_limbs, w, zisq])
-        launch = None
-        if z_ext.shape[0] >= self.STREAM_MIN:
-            # the SAP-extended assignment is ready BEFORE the quotient:
-            # enqueue the a/b/c MSMs from a background thread while the
-            # host (pure C++, GIL released) runs hpoly below
-            from concurrent.futures import ThreadPoolExecutor
-
-            ex = ThreadPoolExecutor(max_workers=1)
-            launch = ex.submit(self._stream_launch, pk, z_ext, n_inst)
-            ex.shutdown(wait=False)
+        # the SAP-extended assignment is ready BEFORE the quotient:
+        # enqueue the a/b/c MSMs from a background thread while the host
+        # (pure C++, GIL released) runs hpoly below
+        launch = self._stream_launch_bg(pk, z_ext, n_inst)
         nl = z_limbs.shape[1]
         a_ev = np.zeros((domain.n, nl), dtype="<u8")
         c_ev = np.zeros((domain.n, nl), dtype="<u8")
@@ -373,6 +392,51 @@ class GM17:
         if launch is not None:
             futs = launch.result()
             self._stream_launch_h(pk, futs, h)
+        return z_ext, h, futs
+
+    def _h_device(self, pk, rows3, z, n_inst, n_cons, domain, replayed):
+        """The device quotient tier: z goes to the device once (K7 to
+        Montgomery form), K6 evaluates A z, B z and C z, K7 builds the SAP
+        evaluations and the extension w, z_i^2 of the assignment, which
+        come back as canonical limbs for the a/b/c MSMs (enqueued from the
+        background thread, as in the host tier), and hpoly runs the
+        squaring quotient with b aliased to a (K5, K7), checking the even
+        SAP rows of a replayed witness.  Returns (SAP-extended z limbs,
+        h, stream futures or None): h (n - 1, 10) canonical limbs on the
+        device when the h-query MSM streams, else host limbs."""
+        import numpy as np
+
+        from ... import native as _nat
+        from ...ops.fft_tensor import fft_ctx, hpoly
+        from ...ops.field import limbs_host, upload_limbs
+        from ...ops.matvec_tensor import device_matrices
+
+        p, n = self.Fr.MODULUS, domain.n
+        fctx = fft_ctx(self.Fr, n, self.device)
+        f = fctx.f
+        mats = device_matrices(pk, self.Fr, rows3, n_cons, len(z),
+                               self.device)
+        with span("z_marshal"):
+            z_limbs = _nat.scalars_to_limbs(z)
+        with span("matvec"):
+            z_mont = f.to_mont(upload_limbs(z_limbs, self.device))
+            az, bz, cz = (m.apply(z_mont) for m in mats)
+        with span("sap_evals"):
+            a_ev, c_ev, ext = f.sap(az, bz, cz, z_mont[:n_inst], n)
+            z_ext = np.concatenate([z_limbs, limbs_host(f.from_mont(ext))])
+        launch = self._stream_launch_bg(pk, z_ext, n_inst)
+        zh_inv = pow(domain.vanishing_poly_at(domain.coset_shift), -1, p)
+        try:
+            # even SAP row check: A^2 - C = 4(Az.Bz - Cz)
+            with span("hpoly"):
+                h = hpoly(fctx, a_ev, a_ev, c_ev, zh_inv,
+                          2 * n_cons if replayed else 0)[: n - 1]
+        except ValueError:
+            raise SNARKError("unsatisfied constraint (replayed witness)")
+        if launch is None:
+            return z_ext, limbs_host(h), None
+        futs = launch.result()
+        self._stream_launch_h(pk, futs, h)
         return z_ext, h, futs
 
     def _h_python(self, rows3, z, n_inst, n_cons, domain, replayed):

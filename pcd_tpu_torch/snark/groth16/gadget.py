@@ -16,6 +16,9 @@ of each vk element's coordinates (prime-subfield flattening, canonical field
 bytes), gamma_abc last.  The native side reuses the gadget on a scratch
 circuit exactly like the reference does (src/ec_cycle_pcd/mod.rs:101-127),
 so native/gadget agreement is by construction.
+
+The port's copy of `pcd_tpu/snark/groth16/gadget.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

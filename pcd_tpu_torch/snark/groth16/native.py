@@ -12,10 +12,13 @@ Standard Groth16 over the QAP of the R1CS:
   - prove computes h = (A B - C)/Z_H on a coset and commits via MSMs
   - proofs are randomized (r, s)
 
-The host tier (the C++ CSR matvec and fused quotient pipeline) runs the
-prove while the commitment MSMs of circuits with at least STREAM_MIN
-variables go to the stream MSM (ops/msm_stream.py) on `device`: the CUDA
-kernels on a card, their plain versions on the CPU.
+The quotient runs on the tier msm_dispatch.QUOTIENT names: "host", the
+C++ CSR matvec and fused quotient pipeline, or "device", the reference's
+device tier (its `_use_device` branch of `prove`) on `device`: the sparse
+matvec (ops/matvec_tensor.py), the replay check and the coset pipeline
+(ops/fft_tensor.py).  Meanwhile the commitment MSMs of circuits with at
+least STREAM_MIN variables go to the stream MSM (ops/msm_stream.py) on
+`device`: the CUDA kernels on a card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -136,13 +139,28 @@ class Groth16:
         futs["l_query"] = futs.pop(l_nm)
         return futs
 
+    def _stream_launch_bg(self, pk, z_limbs, n_inst):
+        """_stream_launch from a background thread: returns its future."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        ex = ThreadPoolExecutor(max_workers=1)
+        fut = ex.submit(self._stream_launch, pk, z_limbs, n_inst)
+        ex.shutdown(wait=False)
+        return fut
+
     def _stream_launch_h(self, pk, futs, h_limbs):
-        """Enqueue the h-query MSM once the quotient limbs land."""
+        """Enqueue the h-query MSM once the quotient limbs land (host
+        limbs, or the device quotient's tensor, which the side stream
+        reads after the quotient's stream has computed it)."""
+        import torch
+
         from ..msm_dispatch import side_stream, stream_msm_async
 
         if futs is None:
             return False
-        with side_stream(self, self.device), span("stream_dispatch_h"):
+        reads = (h_limbs,) if isinstance(h_limbs, torch.Tensor) else ()
+        with side_stream(self, self.device, reads), \
+                span("stream_dispatch_h"):
             futs["h_query"] = stream_msm_async(pk, "h_query", self.cfg.g1,
                                                self.Fr.BITS, h_limbs,
                                                self.device)
@@ -292,8 +310,12 @@ class Groth16:
         hybrid = None
         with span("groth16/h_poly"):
             from ... import native as _nat
+            from ..msm_dispatch import quotient_tier
 
-            if _nat.available() and p.bit_length() <= 320:
+            if quotient_tier() == "device":
+                z_limbs, hybrid, h = self._h_device(
+                    pk, rows, z, n_inst, n_cons if replayed else 0, domain)
+            elif _nat.available() and p.bit_length() <= 320:
                 # limb fast path: z is marshalled ONCE; the CSR
                 # matvec, the fused quotient pipeline (7 NTTs +
                 # pointwise in one native call) and the MSM scalars
@@ -309,12 +331,7 @@ class Groth16:
                 # need z — from a background thread, while the host
                 # (pure C++, GIL released) runs matvec + the quotient
                 # pipeline below
-                from concurrent.futures import ThreadPoolExecutor
-
-                _ex = ThreadPoolExecutor(max_workers=1)
-                hybrid = _ex.submit(self._stream_launch, pk,
-                                    z_limbs, n_inst)
-                _ex.shutdown(wait=False)
+                hybrid = self._stream_launch_bg(pk, z_limbs, n_inst)
                 with span("matvec"):
                     a_l, b_l, c_l = mats.apply_all_limbs(z_limbs)
                 zh_inv = pow(
@@ -356,6 +373,41 @@ class Groth16:
             return self._prove_commit(pk, n_inst, z, h, r, s,
                                       z_limbs=z_limbs, hybrid=hybrid)
 
+    def _h_device(self, pk, rows, z, n_inst, check_rows, domain):
+        """The device quotient tier: z goes to the device once (K7 to
+        Montgomery form), K6 evaluates A z, B z and C z into one (3, n, 10)
+        tensor, and hpoly checks rows [:check_rows] (the replayed witness)
+        and runs the coset pipeline (K5, K7).  The a/b1/b2/l MSMs are
+        enqueued from the background thread as soon as z is known, on the
+        side stream.  Returns (z limbs, that future, h): h the (n - 1, 10)
+        canonical limbs on the device, which the h-query MSM reads there."""
+        import torch
+
+        from ... import native as _nat
+        from ...ops.fft_tensor import fft_ctx, hpoly
+        from ...ops.field import NLIMB, upload_limbs
+        from ...ops.matvec_tensor import device_matrices
+
+        p, n = self.Fr.MODULUS, domain.n
+        fctx = fft_ctx(self.Fr, n, self.device)
+        mats = device_matrices(pk, self.Fr, rows, n, len(z), self.device)
+        with span("z_marshal"):
+            z_limbs = _nat.scalars_to_limbs(z)
+        hybrid = self._stream_launch_bg(pk, z_limbs, n_inst)
+        with span("matvec"):
+            z_mont = fctx.f.to_mont(upload_limbs(z_limbs, self.device))
+            evs = torch.empty((3, n, NLIMB), dtype=torch.int32,
+                              device=self.device)
+            for k, m in enumerate(mats):
+                m.apply(z_mont, out=evs[k])
+        zh_inv = pow(domain.vanishing_poly_at(domain.coset_shift), -1, p)
+        try:
+            with span("hpoly"):
+                h = hpoly(fctx, evs[0], evs[1], evs[2], zh_inv, check_rows)
+        except ValueError:
+            raise SNARKError("unsatisfied constraint (replayed witness)")
+        return z_limbs, hybrid, h[: n - 1]
+
     def _prove_commit(self, pk, n_inst, z, h, r, s, z_limbs=None,
                       hybrid=None):
         from ..msm_dispatch import host_query, msm_any
@@ -372,6 +424,9 @@ class Groth16:
                 return msm_any(host_query(pk, name), scalars)
 
         import numpy as np
+        import torch
+
+        from ...ops.field import limbs_host
 
         if hybrid is not None and not isinstance(hybrid, dict):
             # background-thread launch (see prove): resolve it here —
@@ -381,8 +436,10 @@ class Groth16:
         # The h-query MSM joins the device queue as soon as the quotient
         # limbs land; the collects below then block only on whatever the
         # device hasn't finished.
-        h_streamed = (isinstance(h, np.ndarray)
+        h_streamed = (isinstance(h, (np.ndarray, torch.Tensor))
                       and self._stream_launch_h(pk, hybrid, h))
+        if isinstance(h, torch.Tensor) and not h_streamed:
+            h = limbs_host(h)
         if len(pk.a_query) >= self.STREAM_MIN and (
                 self.device.type == "cuda" or hybrid is not None):
             missing = [nm for nm in self.STREAMED

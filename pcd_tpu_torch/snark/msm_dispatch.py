@@ -12,6 +12,13 @@ where only the scalar limbs cross and the digits, sort and placement run
 on the device.  Both schedules feed the same K1 -> K4 -> Horner pipeline;
 it replaces the reference's PCD_TPU_DEVSCHED environment variable.
 
+QUOTIENT picks who computes the Groth16 and GM17 provers' quotient h =
+(A B - C)/Z_H: "host", the C++ tier's CSR matvec and fused `hpoly`, or
+"device", the reference's device tier (its `_use_device` branch): z goes
+to the device once and the matvec (ops/matvec_tensor.py), the transforms
+and the pointwise steps (ops/fft_tensor.py) run there, so h stays on the
+device for the h-query MSM.
+
 The stream tier runs on the device the prover was built for: on a CUDA
 device the kernels of ops/ec.py, on the CPU their plain versions.  Work is
 enqueued on the caller's current stream (the prover's side stream); each
@@ -39,6 +46,19 @@ LANES = 8192
 # schedule cut the schedule spans tenfold, but the warm step's gain stayed
 # inside its spread between steps.
 SCHEDULER = "host"
+# Who computes the provers' quotient, "host" or "device" (see the module
+# docstring).  "device" by the rule in PERF.md (PR 6): on the H100 the
+# Groth16 warm step under the device quotient was shorter in every pair,
+# its median by far more than the host steps' interquartile distance.
+QUOTIENT = "device"
+
+
+def quotient_tier() -> str:
+    """QUOTIENT, checked: an unknown value raises."""
+    if QUOTIENT in ("host", "device"):
+        return QUOTIENT
+    raise ValueError(f"msm_dispatch.QUOTIENT: 'host' or 'device', not "
+                     f"{QUOTIENT!r}")
 
 
 def host_query(owner, name: str):
@@ -119,14 +139,25 @@ def msm_any(query, scalars):
     return host_msm([a for a, _ in nz], [b for _, b in nz])
 
 
-def side_stream(owner, device):
+@contextlib.contextmanager
+def side_stream(owner, device, reads=()):
     """Context manager placing work on `owner`'s MSM side stream, made on
-    first use (a no-op on the CPU)."""
+    first use (a no-op on the CPU).  `reads`: tensors that the caller's
+    current stream computed and the side stream's work reads; the side
+    stream first waits for the caller's stream, and their memory stays
+    reserved until the side stream's work is done."""
     if device.type != "cuda":
-        return contextlib.nullcontext()
+        yield
+        return
     if getattr(owner, "_msm_stream", None) is None:
         owner._msm_stream = torch.cuda.Stream(device)
-    return torch.cuda.stream(owner._msm_stream)
+    side = owner._msm_stream
+    if reads:
+        side.wait_stream(torch.cuda.current_stream(device))
+        for t in reads:
+            t.record_stream(side)
+    with torch.cuda.stream(side):
+        yield
 
 
 def zpad_query(pk, nm: str, n_inst: int, curve) -> str:
@@ -189,7 +220,10 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                      device, sched_cache=None, offset=None):
     """Enqueue one query MSM on the stream tier without waiting; returns
     a future for stream_collect.  scal_limbs: (n, NL) u64 canonical limbs
-    (truncated to the table length; fewer scalars than points raises).
+    (truncated to the table length; fewer scalars than points raises),
+    or (n, 10) int32 canonical limbs on the device (the device quotient's
+    h), which the device scheduler reads in place and the host scheduler
+    fetches.
 
     offset: an MSM over the rows [offset, offset + n) of the table only,
     n the number of scalars (KZG's commits and opens over a prefix or a
@@ -205,13 +239,15 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
     right only while every caller passes the same z)."""
     sctx, table, _ = stream_table(pk, nm, curve, scalar_bits, device)
     qn = len(getattr(pk, nm))
+    on_dev = isinstance(scal_limbs, torch.Tensor)
     if offset is None:
-        sl = np.ascontiguousarray(scal_limbs[:qn])
+        sl = scal_limbs[:qn] if on_dev else np.ascontiguousarray(
+            scal_limbs[:qn])
         if sl.shape[0] != qn:
             raise ValueError(f"stream MSM {nm}: {sl.shape[0]} scalars for "
                              f"{qn} points")
     else:
-        sl = np.ascontiguousarray(scal_limbs)
+        sl = scal_limbs if on_dev else np.ascontiguousarray(scal_limbs)
         qn = sl.shape[0]
         if offset < 0 or offset + qn > table.shape[0]:
             raise ValueError(f"stream MSM {nm}: rows [{offset}, "
@@ -220,7 +256,7 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
         table = table[offset:offset + qn]
     sched = None
     key = None
-    if sched_cache is not None:
+    if sched_cache is not None and not on_dev:
         key = (sctx.c, sctx.L, qn, hashlib.blake2b(sl.tobytes(),
                                                    digest_size=16).digest())
         sched = sched_cache.get(key)
@@ -232,19 +268,25 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
 
 
 def schedule(sctx, scal_limbs, device):
-    """The schedule of (n, NL) u64 limb scalars by SCHEDULER: the C++
-    tier's StreamSchedule, or a DevSchedule computed on `device` (its one
-    histogram fetch waits on the caller's current stream, the prover's MSM
-    side stream).  Either raises on failure; neither falls back."""
+    """The schedule of (n, NL) u64 limb scalars (or (n, 10) int32 limbs on
+    the device) by SCHEDULER: the C++ tier's StreamSchedule, or a
+    DevSchedule computed on `device` (its one histogram fetch waits on
+    the caller's current stream, the prover's MSM side stream).  Either
+    raises on failure; neither falls back."""
+    from ..ops.field import limbs_host
+
+    on_dev = isinstance(scal_limbs, torch.Tensor)
     if SCHEDULER == "host":
         with span("schedule_host"):
-            return sctx.schedule_native(scal_limbs)
+            return sctx.schedule_native(limbs_host(scal_limbs) if on_dev
+                                        else scal_limbs)
     if SCHEDULER == "device":
         from ..ops.msm_stream_dev import devsched_ctx
 
         dm = devsched_ctx(sctx.curve, sctx.scalar_bits, sctx.c, sctx.L)
         with span("schedule_device"):
-            return dm.schedule(dm.upload(scal_limbs, device))
+            return dm.schedule(scal_limbs.to(device).contiguous() if on_dev
+                               else dm.upload(scal_limbs, device))
     raise ValueError(f"msm_dispatch.SCHEDULER: 'host' or 'device', not "
                      f"{SCHEDULER!r}")
 

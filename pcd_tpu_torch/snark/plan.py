@@ -13,6 +13,9 @@ Circuits opt in by implementing `external_inputs() -> list[int]` (flat
 per-proof values in allocation order).  Circuits without it (or whose
 predicate raises NotImplementedError) transparently fall back to full
 re-synthesis on every prove.
+
+The port's copy of `pcd_tpu/snark/plan.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -2,9 +2,8 @@
 reference has only a `print-trace` cargo feature forwarding to ark-std
 timers; this framework treats observability as a real subsystem).
 
-The port's copy of `pcd_tpu/utils/profiling.py`, without its
-jax.profiler `device_trace` (a card timeline comes from torch.profiler
-around the call instead).
+The port's copy of `pcd_tpu/utils/profiling.py`; its `device_trace` is a
+torch.profiler capture where the reference's is jax.profiler's.
 
 Usage:
     from pcd_tpu_torch.utils.profiling import span, profile_report, enable
@@ -18,6 +17,7 @@ Usage:
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -77,3 +77,21 @@ def totals() -> dict:
     with _lock:
         return {k: tuple(v) for k, v in _totals.items()}
 
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Card timeline capture via torch.profiler (host activity, and the
+    card's kernels and copies where CUDA is available), written to
+    `logdir`/trace.json as a Chrome trace when the block ends.  Yields
+    the profiler, whose events() the caller may read afterwards."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

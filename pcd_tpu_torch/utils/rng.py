@@ -12,6 +12,9 @@ function, 20 rounds) with a documented field/point sampling spec.  Note:
 sources not vendored — SURVEY.md D16), so the framework fixes its own
 deterministic spec; everything downstream (generators, placeholder proofs)
 is internally consistent, which is what the construction requires.
+
+The port's copy of `pcd_tpu/utils/rng.py`; the pcd_tpu paths
+named here are the JAX package's modules.
 """
 
 from __future__ import annotations

@@ -77,6 +77,27 @@ class SquareChain:
         cur.enforce_equal(x)
 
 
+class ReplayChain(SquareChain):
+    """SquareChain over the field of modulus p whose witness the provers
+    replay after the first prove (external inputs: x, then a); x may be
+    given wrong, so that the replayed witness fails a constraint."""
+
+    def __init__(self, p, a=3, k=40, x=None):
+        super().__init__(a, k)
+        self.x = pow(a, 1 << k, p) if x is None else x % p
+
+    def external_inputs(self):
+        return [self.x, self.a]
+
+    def generate_constraints(self, cs):
+        V = fpvar_class(cs)
+        x = V.new_instance(self.x)
+        cur = V.new_witness(self.a)
+        for _ in range(self.k):
+            cur = cur * cur
+        cur.enforce_equal(x)
+
+
 def make_placeholders(pcd, pred, pk):
     """The base case's placeholder (vk, proof) pairs of both SNARKs, made
     (or read from .placeholder_cache) before the counted proves: a

@@ -11,7 +11,11 @@ CPU with the plain versions of the kernels:
   - the GM17 SNARK alone on toy MNT4 and MNT6, on the host tier and
     streamed, byte-equal to pcd_tpu's;
   - the GM17 proof, vk and pk layouts against pcd_tpu's writers;
-  - a streamed prove missing any one of its four MSMs raises.
+  - a streamed prove missing any one of its four MSMs raises;
+  - the device quotient tier (msm_dispatch.QUOTIENT = "device": K6, K7's
+    SAP evaluations, the squaring hpoly on K5 and K7), host-MSM and
+    streamed: the same proof bytes as pcd_tpu's host-tier prove, and a
+    replayed unsatisfied witness raises SNARKError.
 """
 
 import struct
@@ -32,7 +36,7 @@ from pcd_tpu_torch.snark.gm17.native import GM17  # noqa: E402
 from pcd_tpu_torch.utils import serialize as TS  # noqa: E402
 from pcd_tpu_torch.utils.rng import ChaChaRng as TRng  # noqa: E402
 
-from _torch_support import SquareChain  # noqa: E402
+from _torch_support import ReplayChain, SquareChain  # noqa: E402
 from _torch_support import reference_native_loaded  # noqa: E402,F401
 from _torch_support import toy_chain_matches_reference  # noqa: E402
 from _torch_support import two_torch_threads  # noqa: E402,F401
@@ -206,3 +210,54 @@ def test_missing_stream_msm_raises(drop, streamed, monkeypatch):
         monkeypatch.setattr(GM17, "_stream_launch", dropping)
     with pytest.raises(RuntimeError, match=drop):
         tg.prove(tpk, SquareChain(), TRng(b"gm17 drop p"))
+
+
+@pytest.mark.parametrize("cfg_name,stream", [("toy_mnt4", False),
+                                             ("toy_mnt6", True)])
+def test_device_quotient_matches_reference(cfg_name, stream, monkeypatch):
+    """The device quotient tier on the CPU: pcd_tpu's host-tier proof
+    bytes, its h-query MSM reading h as a device tensor when streamed;
+    K6 three times, K5 once per level of the three transforms, and no
+    launch."""
+    monkeypatch.setattr(msm_dispatch, "QUOTIENT", "device")
+    if stream:
+        monkeypatch.setattr(GM17, "STREAM_MIN", 0)
+        monkeypatch.setattr(msm_dispatch, "WINDOW_BITS", 8)
+        monkeypatch.setattr(msm_dispatch, "LANES", 2048)
+    rcfg, tcfg, rg, tg, rpk, _, tpk, tvk = _pair(cfg_name, SquareChain(),
+                                                 b"gm17 quotient")
+    tec.reset_launch_counts()
+    proof = tg.prove(tpk, SquareChain(), TRng(b"gm17 qp"))
+    plain = tec.plain_counts()
+    ref = rg.prove(rpk, SquareChain(), RRng(b"gm17 qp"))
+    assert TS.gm17_proof_to_bytes(proof) == RS.gm17_proof_to_bytes(ref)
+    x = tcfg.Fr.from_int(pow(3, 1 << 40, tcfg.Fr.MODULUS))
+    assert tg.verify(tvk, [x], proof)
+    Fr = tcfg.Fr.NAME
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx
+
+    levels = len(fft_ctx(tcfg.Fr, tpk.domain_size, "cpu").levels)
+    assert plain[("spmv_rows", Fr)] == 3
+    assert plain[("ntt_level", Fr)] == 3 * levels
+    assert plain.get(("madd_accumulate", tcfg.g1.name), 0) == (3 if stream
+                                                               else 0)
+    assert tec.launch_counts() == {}
+
+
+@pytest.mark.parametrize("tier", ["host", "device"])
+def test_replayed_unsatisfied_witness_raises(tier, monkeypatch):
+    """A replayed witness that fails a constraint raises SNARKError on
+    either quotient tier (the even SAP rows' check)."""
+    from pcd_tpu_torch.snark.api import SNARKError
+
+    monkeypatch.setattr(msm_dispatch, "QUOTIENT", tier)
+    tcfg = TM.toy_mnt4()
+    p = tcfg.Fr.MODULUS
+    tg = GM17(tcfg, device="cpu")
+    tpk, tvk = tg.circuit_specific_setup(ReplayChain(p), TRng(b"gm17 r"))
+    proof = tg.prove(tpk, ReplayChain(p), TRng(b"gm17 r1"))
+    proof = tg.prove(tpk, ReplayChain(p), TRng(b"gm17 r2"))
+    assert tpk._plan.replay_count == 1
+    assert tg.verify(tvk, [tcfg.Fr.from_int(ReplayChain(p).x)], proof)
+    with pytest.raises(SNARKError, match="replayed witness"):
+        tg.prove(tpk, ReplayChain(p, x=5), TRng(b"gm17 r3"))

@@ -297,3 +297,108 @@ def test_devsched_msm_on_card(form, cuda_device):
         assert np.array_equal(loads, host.loads[act])
         assert np.array_equal(runrem, host.runrem[act])
     assert len(sched.act) == 2
+
+
+QFIELDS = [("toy_cycle", "main"), ("mnt_cycle", "main"), ("mnt_cycle", "help")]
+QIDS = ["-".join(f) for f in QFIELDS]
+
+
+def _field_rows(F, n, seed):
+    """n random Montgomery elements of F, (n, 10) int32 on the CPU, with
+    0, 1 and p - 1 first."""
+    from pcd_tpu_torch.ops.field import FieldCtx, ints_to_limbs
+
+    f = FieldCtx(F.MODULUS)
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(40), "little") % F.MODULUS
+            for _ in range(n)]
+    vals[:3] = [0, 1, F.MODULUS - 1]
+    return torch.from_numpy(ints_to_limbs([v * f.r % f.p for v in vals])
+                            .view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fld", QFIELDS, ids=QIDS)
+def test_ntt_levels_match_plain(fld, cuda_device):
+    """K5, every level of a transform with radixes 2, 3, 5 or 7 (a batch
+    of two, the first level through the digit reversal), against its
+    plain version limb for limb; the transforms end to end too."""
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx
+    from pcd_tpu_torch.poly.domain import EvaluationDomain
+
+    F = getattr(getattr(M, fld[0])(), fld[1]).Fr
+    dom = EvaluationDomain.new(F, 3000)
+    assert set(dom.factors) - {2}
+    ctx = fft_ctx(F, dom.n, cuda_device)
+    a = torch.stack([_field_rows(F, dom.n, 1), _field_rows(F, dom.n, 2)]
+                    ).to(cuda_device)
+    key = ("ntt_level", F.NAME)
+    src, perm = a, ctx.perm
+    for r, m in ctx.levels:
+        before = launch_counts().get(key, 0)
+        got = ctx.ntt_level(src, ctx.tbl_fwd, perm, r, m)
+        assert launch_counts()[key] == before + 1
+        assert torch.equal(got, ctx.ntt_level_plain(src, ctx.tbl_fwd, perm,
+                                                    r, m)), (r, m)
+        src, perm = got, None
+    back = ctx.coset_ifft(ctx.coset_fft(ctx.ifft(ctx.fft(a))))
+    assert torch.equal(back, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fld", QFIELDS, ids=QIDS)
+def test_spmv_rows_match_plain(fld, cuda_device):
+    """K6 on uneven rows (empty, single entries, one row over every
+    column) against its plain version and the C++ CSR matvec."""
+    import random
+
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.field import limbs_host, upload_limbs
+    from pcd_tpu_torch.ops.matvec_tensor import matrices_to_device
+
+    F = getattr(getattr(M, fld[0])(), fld[1]).Fr
+    p = F.MODULUS
+    rng = random.Random(6)
+    n_rows, n_cols = 3000, 700
+    rows = [tuple({rng.randrange(n_cols): rng.randrange(p)
+                   for _ in range(rng.randrange(4))} for _ in range(3))
+            for _ in range(n_rows)]
+    rows[9] = ({c: rng.randrange(p) for c in range(n_cols)}, {}, {1: 1})
+    z = [rng.randrange(p) for _ in range(n_cols)]
+    mats = matrices_to_device(F, rows, n_rows, n_cols, cuda_device)
+    f = mats[0].f
+    zm = f.to_mont(upload_limbs(native.ints_to_limbs(z), cuda_device))
+    want = native.SpMatrices(p, rows, n_rows).apply_all_limbs(z)
+    for k, m in enumerate(mats):
+        got = m.apply(zm)
+        assert torch.equal(got, m.apply_plain(zm)), k
+        assert np.array_equal(limbs_host(f.from_mont(got)), want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fld", QFIELDS, ids=QIDS)
+def test_fp_vec_matches_plain(fld, cuda_device):
+    """K7, every op code, against its plain version limb for limb: a
+    product by a table and by one element (batched), (a b - c) s,
+    canonical <-> Montgomery, and the SAP evaluations."""
+    from pcd_tpu_torch.ops.field import FieldCtx
+
+    F = getattr(getattr(M, fld[0])(), fld[1]).Fr
+    f = FieldCtx(F.MODULUS)
+    n = 5000
+    a, b, c = (_field_rows(F, n, s) for s in (3, 4, 5))
+    cases = {
+        "vmul table": lambda x, y, z: f.vmul(torch.stack([x, z]), y),
+        "vmul scalar": lambda x, y, z: f.vmul(x, y[7:8]),
+        "abc": lambda x, y, z: f.abc(x, y, z, y[9:10]),
+        "to_mont": lambda x, y, z: f.to_mont(x),
+        "from_mont": lambda x, y, z: f.from_mont(x),
+        "sap": lambda x, y, z: f.sap(x[:2000], y[:2000], z[:2000],
+                                     x[2000:2007], n),
+    }
+    for name, fn in cases.items():
+        got = fn(*(t.to(cuda_device) for t in (a, b, c)))
+        want = fn(a, b, c)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g.cpu(), w), name
