@@ -82,15 +82,20 @@ status line:
      scalars; the schedule's CUDA-event ms (upload to placement, the
      histogram fetch included) against the C++ schedule's wall ms, in
      turns, with the digits, sort and placement times beside them;
- 10  the device quotient, after phase 4: K5 (every level of a forward
-     transform) and K7 (every op) exactly against their plain versions
-     on the four real domains, random inputs from a seed: MNT4-298 Fr at
-     225,792 (Groth16 main) and 688,128 (GM17 main) points, MNT6-298 Fr
-     at 31,360 and 107,520; K6 on the real Groth16 circuits' matrices of
-     phase 4's pk against its plain version and the C++ matvec on the z
-     of a host-quotient warm step; the device h equal to that step's C++
-     hpoly h, main and help; CUDA-event ms per kernel and per quotient.
-     Without phase 4 only the first part runs;
+ 10  the device quotient, after phase 4: K5 (every pass of a forward
+     transform, its passes and tile printed, at most 3 launches a
+     transform in every direction) and K7 (every op) exactly against
+     their plain versions on the four real domains, random inputs from a
+     seed: MNT4-298 Fr at 225,792 (Groth16 main) and 688,128 (GM17 main)
+     points, MNT6-298 Fr at 31,360 and 107,520; K6 on the three real
+     Groth16 matrices of phase 4's pk, main and help, against its plain
+     version and the C++ matvec on the z of a host-quotient warm step,
+     with each matrix's row lengths, warp rows and share of unit
+     entries; the device h equal to that step's C++ hpoly h, main and
+     help; ptxas' registers for K5 and K6; CUDA-event ms per kernel and
+     per quotient, each bound also by the count of every entry and of
+     r - 1 products at every level.  Without phase 4
+     only the first part runs;
   8  (only when asked for alone) the real mnt4_marlin PCD chain through
      the universal setup (reference tests/mnt4_marlin.rs:141-204):
      universal setup, index, base case, step 2, both verified, and the
@@ -157,7 +162,7 @@ REPLACES = {
     # no Pallas site: the XLA digit glue of DevSchedMSM._p1 (lines 80-110)
     ("sched_digits", 0): "pcd_tpu/ops/msm_stream_dev.py:80",
     # no Pallas site: the device quotient's XLA programs
-    ("ntt_level", 0): "pcd_tpu/ops/fft_tensor.py:74",
+    ("ntt_pass", 0): "pcd_tpu/ops/fft_tensor.py:74",
     ("spmv_rows", 0): "pcd_tpu/ops/matvec_tensor.py:77",
     ("fp_vec", 0): "pcd_tpu/snark/groth16/native.py:497, "
                    "pcd_tpu/ops/fft_tensor.py:111",
@@ -167,7 +172,7 @@ SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "madd": "pcd_tpu_torch/csrc/madd.cu",
            "bucket_finish": "pcd_tpu_torch/csrc/bucket_finish.cu",
            "sched_digits": "pcd_tpu_torch/csrc/sched_digits.cu",
-           "ntt_level": "pcd_tpu_torch/csrc/ntt.cu",
+           "ntt_pass": "pcd_tpu_torch/csrc/ntt.cu",
            "spmv_rows": "pcd_tpu_torch/csrc/spmv.cu",
            "fp_vec": "pcd_tpu_torch/csrc/fp_vec.cu"}
 # phase 4's extra warm steps: the stream-MSM scheduler of each, then the
@@ -783,7 +788,7 @@ class LaunchProbe:
         for kernel, attr in self.WRAPPED:
             setattr(ECCtx, attr, wrap(kernel, self._orig[attr]))
         # the device quotient's K5-K7: CUDA events only
-        self._quot = [(FFTTensorCtx, "ntt_level", "ntt_level",
+        self._quot = [(FFTTensorCtx, "ntt_pass", "ntt_pass",
                        lambda c, a: (c.f.name, a[0])),
                       (SparseMatVec, "apply", "spmv_rows",
                        lambda c, a: (c.f.name, a[0])),
@@ -864,7 +869,7 @@ def check_once_per_msm(counts, forms, what):
 
 
 # the device quotient's kernels (on the path only under QUOTIENT "device")
-QUOTIENT_KERNELS = ("ntt_level", "spmv_rows", "fp_vec")
+QUOTIENT_KERNELS = ("ntt_pass", "spmv_rows", "fp_vec")
 
 
 def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
@@ -1059,6 +1064,19 @@ def quotient_step(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     return counts
 
 
+def counter_predicate(F):
+    """The chains' predicate over field F: msg = prior msg + witness."""
+    from pcd_tpu_torch.pcd.api import FpPredicate
+
+    class Counter(FpPredicate):
+        PRIOR_MSG_LEN = 1
+
+        def generate_constraints(self, cs, msg, wit, priors, base):
+            (priors[0] + wit).enforce_equal(msg)
+
+    return Counter(F)
+
+
 def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     """The IVC chain of configs.<name> (the real cycle, on the card unless
     `dev` says otherwise).  With `turns` (phase 4): the warm steps in
@@ -1070,15 +1088,8 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     "trace": traced_steps' result or None, "chain": (pcd, pk)}."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
-    from pcd_tpu_torch.pcd.api import FpPredicate
     from pcd_tpu_torch.utils import profiling
     from pcd_tpu_torch.utils.rng import ChaChaRng
-
-    class Counter(FpPredicate):
-        PRIOR_MSG_LEN = 1
-
-        def generate_constraints(self, cs, msg, wit, priors, base):
-            (priors[0] + wit).enforce_equal(msg)
 
     secs = {}
     profiling.reset()
@@ -1089,7 +1100,7 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     # on the CPU (a rehearsal) the wrappers count plain-version calls
     counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
     F = pcd.ic.main_field
-    pred = Counter(F)
+    pred = counter_predicate(F)
     rng = ChaChaRng(b"chip smoke " + name.encode())
     pk, vk = pcd.circuit_specific_setup(pred, rng)
     secs["setup"] = time.perf_counter() - t0
@@ -1194,6 +1205,10 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     else:
         took["quot_counts"] = quotient_step(pcd, pk, vk, pred, proof_1, rng,
                                             forms, counter, dev, phase)
+    say(phase, "quotient kernel launches per device-quotient warm step: "
+        + json.dumps({f"{k}[{f}]": v for (k, f), v in
+                      sorted((took["quot_counts"] or {}).items())
+                      if k in QUOTIENT_KERNELS}))
     return counts, probe, took
 
 
@@ -1352,7 +1367,7 @@ QUOTIENT_DOMAINS = (("main", 225_792, 3, "mnt4_groth16"),
 
 def phase_quotient(results, took=None, dev="cuda", phase=10):
     """The device quotient (ops/fft_tensor.py, ops/matvec_tensor.py): K5
-    level by level and K7 in every op exactly against their plain versions
+    pass by pass and K7 in every op exactly against their plain versions
     on the four real domains, random inputs from a seed; K6 on the real
     Groth16 circuits' matrices of phase 4's pk against its plain version
     and the C++ matvec on a real warm step's z; the device h against the
@@ -1364,10 +1379,19 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
 
     from pcd_tpu_torch import native
     from pcd_tpu_torch.curves import models as M
-    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, hpoly
+    from pcd_tpu_torch.ops import kernels
+    from pcd_tpu_torch.ops.ec import launch_counts, plain_counts
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, hpoly, ntt_tile
     from pcd_tpu_torch.ops.field import limbs_host, upload_limbs
+    from pcd_tpu_torch.ops.matvec_tensor import WARP_MIN
 
     dev = torch.device(dev)
+    counted = launch_counts if dev.type == "cuda" else plain_counts
+    for name in ("ntt", "spmv"):
+        for line in kernels.BUILD_INFO.get(name, {}).get("ptxas",
+                                                         "").splitlines():
+            if any(w in line for w in ("registers", "spill")):
+                say(phase, f"ptxas {name}: {line.strip()}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     cyc = M.mnt_cycle()
@@ -1383,30 +1407,47 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
         a = rand_elems((batch, n), F.MODULUS, dev, gen)
         src, perm, plain_ms = a, fctx.perm, 0.0
         nbytes = (2 * batch * n + n) * 40 + n * 4
-        mads = 0
-        for r, m in fctx.levels:
-            got = fctx.ntt_level(src, fctx.tbl_fwd, perm, r, m)
-            want, ms_p = timed_plain(lambda: fctx.ntt_level_plain(
-                src, fctx.tbl_fwd, perm, r, m), dev)
+        for i, ps in enumerate(fctx.passes):
+            got = fctx.ntt_pass(src, fctx.tbl_fwd, perm, ps)
+            want, ms_p = timed_plain(lambda: fctx.ntt_pass_plain(
+                src, fctx.tbl_fwd, perm, ps), dev)
             plain_ms += ms_p
             if not torch.equal(got, want):
-                raise AssertionError(f"K5 {F.NAME} n={n} level ({r}, {m}): "
-                                     f"kernel != plain")
-            mads += batch * n * (r - 1) * ops1
+                raise AssertionError(f"K5 {F.NAME} n={n} pass {i} "
+                                     f"({ps.M}, {ps.Q}): kernel != plain")
             src, perm = got, None
         if not torch.equal(fctx.ifft(src), a):
             raise AssertionError(f"K5 {F.NAME} n={n}: ifft(fft(a)) != a")
+        per = {}
+        for fn in ("fft", "ifft", "coset_fft", "coset_ifft"):
+            before = counted().get(("ntt_pass", F.NAME), 0)
+            getattr(fctx, fn)(a)
+            per[fn] = counted()[("ntt_pass", F.NAME)] - before
+        if any(v > 3 for v in per.values()):
+            raise AssertionError(f"K5 {F.NAME} n={n}: more than 3 ntt_pass "
+                                 f"launches a transform: {per}")
         ms = device_ms(lambda: fctx.fft(a), 3, dev)
+        # the products the transform needs: one a pair at radix 2, r - 1
+        # an output above; the per-level count, r - 1 at every level, too
+        mads = batch * ops1 * sum(n // 2 if r == 2 else n * (r - 1)
+                                  for r, _ in fctx.levels)
+        mads_old = batch * ops1 * n * sum(r - 1 for r, _ in fctx.levels)
         form = (f"{F.NAME} n={n} x{batch}, one transform of "
-                f"{len(fctx.levels)} levels")
-        rec = record("ntt_level", form, 0, 0, ms, plain_ms, nbytes, mads)
+                f"{len(fctx.levels)} levels in {len(fctx.passes)} passes")
+        rec = record("ntt_pass", form, 0, 0, ms, plain_ms, nbytes, mads)
+        old = record("ntt_pass", form, 0, 0, ms, plain_ms, nbytes, mads_old)
         results.append(rec)
-        pend.append((rec, chain, "ntt_level", F.NAME))
-        say(phase, f"K5 ntt_level {form} (radixes "
-                   f"{[r for r, _ in fctx.levels]}): every level exact "
-                   f"against plain, ifft(fft) = id; {ms:.3f} ms, bound "
-                   f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
-                   f"{plain_ms:.0f} ms; context with tables {t_ctx:.2f}s")
+        pend.append((rec, chain, "ntt_pass", F.NAME))
+        say(phase, f"K5 ntt_pass {form}, tile {ntt_tile(n)} points: passes "
+                   + "; ".join(f"M {ps.M} Q {ps.Q} C {ps.C} radixes "
+                               f"{[r for r, *_ in ps.levels]}"
+                               for ps in fctx.passes)
+            + f"; launches a transform {json.dumps(per)}; every pass "
+              f"exact against plain, ifft(fft) = id; {ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+              f"{rec['bound_ms'] / ms:.1%}; by the earlier count "
+              f"{old['bound_ms']:.4f} ms, {old['bound_ms'] / ms:.1%}), "
+              f"plain {plain_ms:.0f} ms; context with tables {t_ctx:.2f}s")
         # K7: every op against its plain version; the record is the
         # coset-table product at the transform's batch
         x, y, z = (rand_elems((n,), F.MODULUS, dev, gen) for _ in range(3))
@@ -1476,25 +1517,31 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
             shape = (f"{m.n_rows} rows, {m.nnz} entries, row lengths mean "
                      f"{lens.mean():.2f}, max {m.max_row}, "
                      f"{int((lens == 0).sum())} empty, "
-                     f"{int((lens == 1).sum())} single")
+                     f"{int((lens == 1).sum())} single, {m.n_warp} rows of "
+                     f"more than {WARP_MIN} a warp each, unit entries "
+                     f"{m.n_units} ({m.n_units / max(m.nnz, 1):.1%})")
+            out_k = torch.empty_like(evs[0])
+            ms = device_ms(lambda: m.apply(z_mont, out=out_k), 5, dev)
+            # the work these inputs need: the products of entries that are
+            # not units; the count of one per entry, too
+            prods = m.nnz - m.n_units
+            nbytes = (m.n_rows * 52 + 4 + m.nnz * 4 + prods * 40
+                      + m.n_cols * 40)
+            form = f"{F.NAME} Groth16 {side} {'ABC'[k]}: {shape}"
+            rec = record("spmv_rows", form, 0, 0, ms, ms_p, nbytes,
+                         prods * ops1)
+            old = record("spmv_rows", form, 0, 0, ms, ms_p,
+                         (m.n_rows + 1) * 4 + m.nnz * 44 + m.n_cols * 40
+                         + m.n_rows * 40, m.nnz * ops1)
             if k == 0:
-                out_k = torch.empty_like(evs[0])
-                ms = device_ms(lambda: m.apply(z_mont, out=out_k), 5, dev)
-                nbytes = ((m.n_rows + 1) * 4 + m.nnz * 44 + m.n_cols * 40
-                          + m.n_rows * 40)
-                form = f"{F.NAME} Groth16 {side} A: {shape}"
-                rec = record("spmv_rows", form, 0, 0, ms, ms_p, nbytes,
-                             m.nnz * ops1)
                 results.append(rec)
                 pend.append((rec, "mnt4_groth16", "spmv_rows", F.NAME))
-                say(phase, f"K6 spmv_rows {form}: exact against plain and "
-                           f"the C++ CSR matvec; {ms:.3f} ms, bound "
-                           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
-                           f"plain {ms_p:.0f} ms")
-            else:
-                say(phase, f"K6 spmv_rows {F.NAME} Groth16 {side} matrix "
-                           f"{'ABC'[k]} ({shape}): exact against plain and "
-                           f"the C++ matvec")
+            say(phase, f"K6 spmv_rows {form}: exact against plain and the "
+                       f"C++ CSR matvec; {ms:.4f} ms, bound "
+                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                       f"{rec['bound_ms'] / ms:.1%}; by the earlier count "
+                       f"{old['bound_ms']:.4f} ms, "
+                       f"{old['bound_ms'] / ms:.1%}), plain {ms_p:.0f} ms")
         zh_inv, check_rows, h_cpp = cap["h"]
         h = hpoly(fctx, evs[0], evs[1], evs[2], zh_inv, check_rows)
         if not np.array_equal(limbs_host(h), h_cpp):
@@ -1770,22 +1817,15 @@ def phase_marlin_chain(dev=None, phase=8):
     curves' G1, no kernel on G2 (Marlin has no G2 MSM)."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
-    from pcd_tpu_torch.pcd.api import FpPredicate
     from pcd_tpu_torch.snark.marlin.native import MarlinBound
     from pcd_tpu_torch.utils.rng import ChaChaRng
-
-    class Counter(FpPredicate):
-        PRIOR_MSG_LEN = 1
-
-        def generate_constraints(self, cs, msg, wit, priors, base):
-            (priors[0] + wit).enforce_equal(msg)
 
     secs = {}
     pcd = configs.mnt4_marlin(dev)
     dev = pcd.ic.main_snark.device
     counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
     F = pcd.ic.main_field
-    pred = Counter(F)
+    pred = counter_predicate(F)
     rng = ChaChaRng(b"chip smoke mnt4_marlin")
     ec.reset_launch_counts()                       # the Marlin chain starts
     t0 = time.perf_counter()

@@ -4,6 +4,7 @@ checkout:
 
     python3 kernel_ab.py --other DIR [--sweep] [--k4]
     python3 kernel_ab.py --k4
+    python3 kernel_ab.py --quotient --other DIR [--sweep]
 
 --other DIR: K1 (madd_accumulate) of this checkout against K1 of another
 copy of pcd_tpu_torch/csrc, and the integer multiply-adds one field
@@ -34,6 +35,28 @@ events in the order K4, variant Ms, variant Ms reversed, K4.  Then one thread's 
 K4's add (pcd_add_chain) in 1, 132, 264 and 400 blocks of 128 threads
 (400: K4's grid at c = 12), which gives the latency of one add.
 
+--quotient --other DIR [--sweep]: the quotient's K5 and K6 of this
+checkout against those of another copy of pcd_tpu_torch/csrc (DIR, e.g.
+the parent's: its ntt.cu has the per-level entry pcd_ntt_level, its
+spmv.cu one thread a row), in place of K1.  Both trees launch through
+their raw C entries into buffers allocated once, and each is timed twice
+in the order other, this, this, other: by CUDA events around five calls,
+and by the kernels' busy time in a torch.profiler trace of six calls,
+the last five calls' worth of kernels recorded (host gaps between
+launches left out):
+
+  ntt   chip_smoke.py phase 10's four domains at the provers' batch,
+        random inputs from a seed, one forward transform: the other tree
+        a launch per level, this tree a launch per pass
+        (fft_tensor.passes at the domain's tile); both equal FFTTensorCtx.fft limb
+        for limb; with --sweep, this tree's kernel again at each tile of
+        NTT_TILES, in turns;
+  spmv  the Groth16 main circuit's A of mnt4_groth16 (its MainCircuit
+        synthesized as the setup does, the CRH from a ChaCha seed, the
+        chains' predicate) and a random z from a seed: the other tree's
+        spmv_rows on this tree's CSR (its unit entries multiplied by R)
+        against this one, both equal to SparseMatVec.apply.
+
 Prints one line per measurement and a JSON summary as the last line.
 """
 
@@ -57,6 +80,8 @@ SWEEP = {f"minb{b}": [f"-DK1_MINB{d}={b}" for d in (1, 2, 3)]
 RUNSUM = os.path.join(HERE, "kernel_ab_runsum.cu")
 RUNSUM_M = (2, 4, 8, 16)
 CHAIN_GRIDS, CHAIN_N = (1, 132, 264, 400), 32
+# K5 tiles swept by --quotient --sweep (points a block holds)
+NTT_TILES = (2048, 1024, 512, 256)
 FORMS = (("mnt4_298.G1", "main", "g1", 24), ("mnt4_298.G2", "main", "g2", 24),
          ("mnt6_298.G1", "help", "g1", 4), ("mnt6_298.G2", "help", "g2", 4))
 PROBE = r"""
@@ -279,14 +304,228 @@ def k4_ab(lib, summary):
         torch.cuda.empty_cache()
 
 
+def load_other_quotient(ntt_so, spmv_so):
+    """The per-level K5 and one-thread-a-row K6 entries (csrc/ntt.cu,
+    csrc/spmv.cu of DIR)."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    ntt, spmv = ctypes.CDLL(ntt_so), ctypes.CDLL(spmv_so)
+    ntt.pcd_ntt_level.restype = ci
+    ntt.pcd_ntt_level.argtypes = [vp] * 4 + [cl, ci, ci, ci, vp, vp]
+    spmv.pcd_spmv_rows.restype = ci
+    spmv.pcd_spmv_rows.argtypes = [vp] * 5 + [cl, vp, vp]
+    return ntt, spmv
+
+
+def groth16_main_a():
+    """The Groth16 main circuit's A of mnt4_groth16 on the card, as the
+    prover's device matrices hold it (rows padded to the domain)."""
+    import chip_smoke as cs
+    from pcd_tpu_torch import configs
+    from pcd_tpu_torch.ops.matvec_tensor import matrices_to_device
+    from pcd_tpu_torch.pcd.ec_cycle import MainCircuit
+    from pcd_tpu_torch.poly.domain import EvaluationDomain
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    ic = configs.mnt4_groth16("cuda").ic
+    snark, F = ic.main_snark, ic.main_field
+    circ = MainCircuit(ic, cs.counter_predicate(F), ic.crh.setup(
+        ChaChaRng(b"kernel_ab main A")))
+    csys = snark._synthesize(circ)
+    rows = snark._matrix_rows(csys)
+    n = EvaluationDomain.new(F, len(rows)).n
+    n_cols = csys.num_instance + csys.num_witness
+    return matrices_to_device(F, rows, n, n_cols, "cuda")[0]
+
+
+def kernel_ms(fn, logdir, launches, reps=5):
+    """Device time of one fn() in ms: the busy time of the kernels in a
+    torch.profiler trace, so host gaps between launches do not count.
+    The trace holds 1 + reps calls of the same work, as the profiler may
+    drop a kernel's record; the last reps x `launches` kernels recorded
+    are summed (None when fewer were recorded)."""
+    import json
+
+    import torch
+
+    from pcd_tpu_torch.utils.profiling import device_trace
+
+    fn()
+    torch.cuda.synchronize()
+    with device_trace(logdir):
+        for _ in range(1 + reps):
+            fn()
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in events if e.get("cat") == "kernel")
+    if len(kern) < reps * launches:
+        print(f"kernel_ms: {len(kern)} kernels in {logdir}, "
+              f"{(1 + reps) * launches} launched: not measured", flush=True)
+        return None
+    busy, end = 0.0, None
+    for a, b in kern[len(kern) - reps * launches:]:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3 / reps
+
+
+def in_turns(fns, order, logdir):
+    """Mean CUDA-event ms and mean kernel ms (None where no trace of it
+    held its kernels) of each fns[name] = (fn, launches a call) over the
+    names of `order` (each timed once per appearance)."""
+    ev, dv = {}, {}
+    for i, name in enumerate(order):
+        fn, launches = fns[name]
+        ev.setdefault(name, []).append(ms(fn))
+        t = kernel_ms(fn, os.path.join(logdir, f"{i}"), launches)
+        dv.setdefault(name, [])
+        if t is not None:
+            dv[name].append(t)
+    return ({k: sum(v) / len(v) for k, v in ev.items()},
+            {k: sum(v) / len(v) if v else None for k, v in dv.items()})
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def quotient_ab(libs, summary, out_dir, sweep):
+    """K5 and K6, this tree against the other, both launched through
+    their raw C entries into buffers allocated once, and this tree's K5
+    at each tile of NTT_TILES (see the module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, ntt_tile, passes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    stream = torch.cuda.current_stream().cuda_stream
+    cyc = M.mnt_cycle()
+    summary["ntt"], summary["spmv"] = {}, {}
+    for side, n, batch, _ in cs.QUOTIENT_DOMAINS:
+        F = getattr(cyc, side).Fr
+        fctx = fft_ctx(F, n, dev)
+        kc = fctx.f.kconsts.ctypes.data_as(ctypes.c_void_p)
+        a = cs.rand_elems((batch, n), F.MODULUS, dev, gen)
+        bufs = (torch.empty_like(a), torch.empty_like(a))
+
+        def other():
+            src, perm = a, fctx.perm
+            for i, (r, m) in enumerate(fctx.levels):
+                rc = libs["ntt_other"].pcd_ntt_level(
+                    src.data_ptr(), bufs[i % 2].data_ptr(),
+                    fctx.tbl_fwd.data_ptr(),
+                    None if perm is None else perm.data_ptr(), n, batch, r,
+                    m, kc, stream)
+                if rc:
+                    raise RuntimeError(f"other ntt_level: CUDA error {rc}")
+                src, perm = bufs[i % 2], None
+            return src
+
+        def this(ps_all):
+            geoms = [ps.geom() for ps in ps_all]
+
+            def run():
+                src, perm = a, fctx.perm
+                for i, geom in enumerate(geoms):
+                    rc = libs["ntt"].pcd_ntt_pass(
+                        src.data_ptr(), bufs[i % 2].data_ptr(),
+                        fctx.tbl_fwd.data_ptr(),
+                        None if perm is None else perm.data_ptr(), n, batch,
+                        geom.ctypes.data_as(ctypes.c_void_p), kc, stream)
+                    if rc:
+                        raise RuntimeError(f"ntt_pass: CUDA error {rc}")
+                    src, perm = bufs[i % 2], None
+                return src
+            return run
+
+        fns = {"other": (other, len(fctx.levels)),
+               "this": (this(fctx.passes), len(fctx.passes))}
+        want = fctx.fft(a)
+        for name, (fn, _) in fns.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"K5 n={n}: {name} != fctx.fft")
+        tag = f"{F.NAME} n={n} x{batch}"
+        logdir = os.path.join(out_dir, "trace", f"ntt_{n}")
+        evs, dvs = in_turns(fns, ("other", "this", "this", "other"), logdir)
+        if sweep:
+            tiles = {}
+            for tile in NTT_TILES:
+                ps_all = passes(n, fctx.levels, tile)
+                tiles[f"tile {tile} ({len(ps_all)} passes)"] = (
+                    this(ps_all), len(ps_all))
+            for name, (fn, _) in tiles.items():
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"K5 n={n}: {name} != fctx.fft")
+            e, d = in_turns(tiles, list(tiles) + list(reversed(tiles)),
+                            logdir + "_tiles")
+            evs.update(e)
+            dvs.update(d)
+        summary["ntt"][tag] = {"events_ms": evs, "kernel_ms": dvs}
+        print(f"K5 {tag} forward transform ({len(fctx.levels)} levels, "
+              f"{len(fctx.passes)} passes at tile {ntt_tile(n)})"
+              ": " + ", ".join(f"{k} {evs[k]:.4f} ms events, "
+                               f"{fmt_ms(dvs[k])} kernels" for k in evs),
+              flush=True)
+        del a, bufs, want
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m = groth16_main_a()
+    f = m.f
+    took = time.perf_counter() - t0
+    z = cs.rand_elems((m.n_cols,), f.p, dev, gen)
+    out = torch.empty((m.n_rows, 10), dtype=torch.int32, device=dev)
+    fk = f.kconsts.ctypes.data_as(ctypes.c_void_p)
+
+    def old():
+        rc = libs["spmv_other"].pcd_spmv_rows(
+            m.rowptr.data_ptr(), m.cols.data_ptr(), m.vals.data_ptr(),
+            z.data_ptr(), out.data_ptr(), m.n_rows, fk, stream)
+        if rc:
+            raise RuntimeError(f"other spmv_rows: CUDA error {rc}")
+        return out
+
+    def new():
+        rc = libs["spmv"].pcd_spmv_rows(
+            m.rowptr.data_ptr(), m.units.data_ptr(), m.cols.data_ptr(),
+            m.vals.data_ptr(), m.order.data_ptr(), z.data_ptr(),
+            out.data_ptr(), m.n_rows, m.n_warp, fk, stream)
+        if rc:
+            raise RuntimeError(f"spmv_rows: CUDA error {rc}")
+        return out
+
+    want = m.apply(z).clone()
+    fns = {"other": (old, 1), "this": (new, 1)}
+    for name, (fn, _) in fns.items():
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"K6: {name} != SparseMatVec.apply")
+    evs, dvs = in_turns(fns, ("other", "this", "this", "other"),
+                        os.path.join(out_dir, "trace", "spmv"))
+    lens = torch.diff(m.rowptr).cpu().numpy()
+    what = (f"{f.name} Groth16 main A ({m.n_rows} rows, {m.nnz} entries, "
+            f"mean {lens.mean():.2f}, max {m.max_row}, {m.n_warp} warp "
+            f"rows, {m.n_units} unit entries)")
+    summary["spmv"][what] = {"events_ms": evs, "kernel_ms": dvs}
+    print(f"K6 {what}, built in {took:.1f}s: " + ", ".join(
+        f"{k} {evs[k]:.4f} ms events, {fmt_ms(dvs[k])} kernels"
+        for k in evs), flush=True)
+
+
 def main(argv):
     other = (os.path.abspath(argv[argv.index("--other") + 1])
              if "--other" in argv else None)
     k4 = "--k4" in argv
-    if other is None and not k4:
+    quotient = "--quotient" in argv
+    if (other is None and not k4) or (quotient and other is None):
         print(__doc__, file=sys.stderr)
         return 2
-    sweep = "--sweep" in argv and other is not None
+    sweep = "--sweep" in argv and other is not None and not quotient
     sys.path.insert(0, HERE)
     import torch
 
@@ -306,7 +545,8 @@ def main(argv):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "probe.cu"), "w") as fh:
         fh.write(PROBE)
-    builds = {"other": (other, []), "this": (CSRC, [])} if other else {}
+    builds = ({"other": (other, []), "this": (CSRC, [])}
+              if other and not quotient else {})
     if sweep:
         for name, defs in SWEEP.items():
             builds["this_" + name] = (CSRC, defs)
@@ -322,10 +562,17 @@ def main(argv):
                 "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-I", src, "-o", cub,
                 os.path.join(out_dir, "probe.cu")]), cub)
+    if quotient:
+        qbuilds = {"ntt_other": (os.path.join(other, "ntt.cu"), []),
+                   "spmv_other": (os.path.join(other, "spmv.cu"), [])}
+        for name, (src, defs) in qbuilds.items():
+            so = os.path.join(out_dir, f"{name}.so")
+            procs[name] = (nvcc([*NVCC_FLAGS, *defs, "-o", so, src]), so)
     if k4:
         so = os.path.join(out_dir, "runsum.so")
         procs["runsum"] = (nvcc([*NVCC_FLAGS, "-I", CSRC, "-o", so, RUNSUM]),
                            so)
+    if k4 or quotient:
         kernels.build()     # the port's kernels, meanwhile
     logs, libs, summary = {}, {}, {"sass": {}, "ms": {}, "ptxas": {}}
     for name, (proc, path) in procs.items():
@@ -342,6 +589,24 @@ def main(argv):
         for ln in regs:
             print(f"ptxas {name}: {ln}")
         libs[name] = load_k1(procs[name][1])
+    if quotient:
+        for name in qbuilds:
+            regs = [ln.strip() for ln in logs[name].splitlines()
+                    if "registers" in ln or "spill" in ln]
+            summary["ptxas"][name] = regs
+            for ln in regs:
+                print(f"ptxas {name}: {ln}")
+        for name in ("ntt", "spmv"):
+            regs = [ln.strip() for ln in kernels.BUILD_INFO.get(
+                name, {}).get("ptxas", "").splitlines()
+                if "registers" in ln or "spill" in ln]
+            summary["ptxas"][name] = regs
+            for ln in regs:
+                print(f"ptxas {name} (this tree): {ln}")
+        libs["ntt_other"], libs["spmv_other"] = load_other_quotient(
+            procs["ntt_other"][1], procs["spmv_other"][1])
+        libs["ntt"], libs["spmv"] = kernels.lib("ntt"), kernels.lib("spmv")
+        quotient_ab(libs, summary, out_dir, "--sweep" in argv)
     if k4:
         regs = [ln.strip() for ln in logs["runsum"].splitlines()
                 if "Compiling" in ln or "registers" in ln or "spill" in ln]
@@ -349,7 +614,7 @@ def main(argv):
         for ln in regs:
             print(f"ptxas runsum: {ln}")
         k4_ab(load_runsum(procs["runsum"][1]), summary)
-    if not other:
+    if not other or quotient:
         print(json.dumps(summary))
         return 0
     for tree in ("other", "this"):

@@ -10,12 +10,14 @@ here `plan` and `input_permutation`), with one table of
 root powers per direction and two coset tables.  Values are (batch, n,
 10) int32 Montgomery tensors in the layout of ops/field.py.
 
-On a card every level is one launch of K5 `ntt_level` (csrc/ntt.cu); the
-digit reversal is folded into the first level's loads, and the levels
-alternate between two buffers.  The scalings by n^-1 and by the coset
-tables are K7 (FieldCtx.vmul).  On the CPU each level runs its plain
-version, the reference's `_transform` stage in torch on the plain
-products of ops/field.py.
+`passes` groups the levels into runs whose radixes multiply to at most
+a tile of points (`ntt_tile`: 256 up to 2^17 points, else 512); on a card each run is one launch of K5 `ntt_pass`
+(csrc/ntt.cu), which holds a block's lines in shared memory through all
+of the run's levels; the digit reversal is folded into the first pass's
+loads, and the passes alternate between two buffers.  The scalings by
+n^-1 and by the coset tables are K7 (FieldCtx.vmul).  On the CPU a pass
+runs its levels' plain version in turn, the reference's `_transform`
+stage in torch on the plain products of ops/field.py.
 
 `hpoly` is the quotient h = (A B - C) / Z_H on a coset, the arguments and
 meaning of the C++ tier's `native.hpoly` with the evaluations already on
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,6 +67,60 @@ def plan(factors) -> list:
     return levels
 
 
+# points a block of K5 holds in shared memory (40 bytes each; at most
+# NTT_MAX_TILE, 4096, of csrc/ntt.cu): NTT_TILE, or NTT_TILE_SMALL for a
+# domain of at most NTT_SMALL_N points, where a pass of NTT_TILE-point
+# blocks would not fill the card; csrc/ntt.cu's header says why
+NTT_TILE, NTT_TILE_SMALL, NTT_SMALL_N = 512, 256, 1 << 17
+
+
+def ntt_tile(n: int) -> int:
+    """The K5 tile of an n-point domain."""
+    return NTT_TILE_SMALL if n <= NTT_SMALL_N else NTT_TILE
+
+
+class NttPass(NamedTuple):
+    """The geometry of one K5 launch: the levels of the plan it runs and
+    how its blocks cut the points (csrc/ntt.cu's header)."""
+    M: int          # base stride: the transforms' length before the pass
+    Q: int          # points a line: the product of the pass's radixes
+    C: int          # lines a block
+    levels: tuple   # per level (r, m / M, n_l = r m, stride = n / n_l)
+
+    @property
+    def points(self) -> int:
+        """Points a block loads (the last block may hold fewer lines)."""
+        return self.C * self.Q
+
+    def geom(self) -> np.ndarray:
+        """The int32 array the kernel's C entry takes."""
+        flat = [self.M, self.Q, self.C, len(self.levels)]
+        for lv in self.levels:
+            flat += lv
+        return np.asarray(flat, dtype=np.int32)
+
+
+def passes(n: int, levels, tile: int | None = None) -> list:
+    """The plan's bottom-up `levels` [(r, m)] of an n-point transform cut
+    into K5 passes: each takes the next levels while their radixes
+    multiply to at most `tile` (by default ntt_tile(n)), and its blocks
+    hold tile // Q lines."""
+    tile = ntt_tile(n) if tile is None else tile
+    out, i = [], 0
+    while i < len(levels):
+        M, Q, lv = levels[i][1], 1, []
+        while i < len(levels) and Q * levels[i][0] <= tile:
+            r, m = levels[i]
+            lv.append((r, m // M, r * m, n // (r * m)))
+            Q *= r
+            i += 1
+        if not lv:
+            raise ValueError(f"ntt_pass: radix {levels[i][0]} exceeds the "
+                             f"tile of {tile} points")
+        out.append(NttPass(M, Q, tile // Q, tuple(lv)))
+    return out
+
+
 def input_permutation(n: int, factors) -> np.ndarray:
     """(n,) int32 digit-reversal permutation matching the recursive
     decimation: mixed radix over `factors`, not a bit reversal."""
@@ -85,6 +142,7 @@ class FFTTensorCtx:
         self.device = torch.device(device)
         self.f = FieldCtx(F.MODULUS, name=F.NAME)
         self.levels = plan(d.factors)
+        self.passes = passes(size, self.levels)
         self.perm = torch.from_numpy(input_permutation(size, d.factors)).to(
             self.device)
         # root power tables (Montgomery form)
@@ -108,51 +166,63 @@ class FFTTensorCtx:
         return t
 
     # -- K5 -------------------------------------------------------------------
-    def ntt_level(self, src, tbl, perm, r: int, m: int, out=None):
-        """K5: one level (r, m) of src (batch, n, 10) against the root
-        table tbl (n, 10), the input read through perm (n,) int32 when
-        given; into `out` (a buffer other than src) or a new tensor."""
+    def ntt_pass(self, src, tbl, perm, ps: NttPass, out=None):
+        """K5: the levels of pass `ps` on src (batch, n, 10) against the
+        root table tbl (n, 10), the input read through perm (n,) int32
+        when given (the first pass); into `out` (a buffer other than src)
+        or a new tensor."""
         n = self.n
         if src.dim() != 3 or src.shape[1] != n or tuple(tbl.shape) != (
-                n, NLIMB) or n % (r * m):
-            raise ValueError("ntt_level: src (batch, n, 10), tbl (n, 10), "
-                             "r m dividing n")
+                n, NLIMB) or n % (ps.M * ps.Q) or (perm is not None
+                                                   and ps.M != 1):
+            raise ValueError("ntt_pass: src (batch, n, 10), tbl (n, 10), "
+                             "M Q dividing n, perm only at M = 1")
         dev = src.device
-        key = ("ntt_level", self.f.name)
+        key = ("ntt_pass", self.f.name)
         if dev.type == "cpu":
             _PLAIN[key] += 1
-            res = self.ntt_level_plain(src, tbl, perm, r, m)
+            res = self.ntt_pass_plain(src, tbl, perm, ps)
             if out is None:
                 return res
             out.copy_(res)
             return out
         if dev.type != "cuda":
-            raise ValueError(f"ntt_level: unsupported device {dev}")
+            raise ValueError(f"ntt_pass: unsupported device {dev}")
         if out is None:
             out = torch.empty_like(src)
         for t in (src, tbl, out) + (() if perm is None else (perm,)):
             if t.device != dev or t.dtype != torch.int32 \
                     or not t.is_contiguous() or t.data_ptr() % 8:
-                raise ValueError(f"ntt_level: contiguous int32 on {dev} "
+                raise ValueError(f"ntt_pass: contiguous int32 on {dev} "
                                  f"expected")
         if out.shape != src.shape or out.data_ptr() == src.data_ptr():
-            raise ValueError("ntt_level: out must be a distinct buffer of "
+            raise ValueError("ntt_pass: out must be a distinct buffer of "
                              "src's shape")
         from .kernels import lib
 
-        rc = lib("ntt").pcd_ntt_level(
+        geom = ps.geom()
+        rc = lib("ntt").pcd_ntt_pass(
             src.data_ptr(), out.data_ptr(), tbl.data_ptr(),
-            None if perm is None else perm.data_ptr(), n, src.shape[0], r,
-            m, self.f.kconsts.ctypes.data_as(ctypes.c_void_p),
+            None if perm is None else perm.data_ptr(), n, src.shape[0],
+            geom.ctypes.data_as(ctypes.c_void_p),
+            self.f.kconsts.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"ntt_level launch failed: CUDA error {rc}")
+            raise RuntimeError(f"ntt_pass launch failed: CUDA error {rc}")
         _LAUNCHES[key] += 1
         return out
 
+    def ntt_pass_plain(self, src, tbl, perm, ps: NttPass):
+        """The plain version of K5: the pass's levels in turn."""
+        for r, ml, _, _ in ps.levels:
+            src = self.ntt_level_plain(src, tbl, perm, r, ml * ps.M)
+            perm = None
+        return src
+
     def ntt_level_plain(self, src, tbl, perm, r: int, m: int):
-        """The plain version of K5: the reference's stage, out[g, k] =
-        sum_j T[idx[j, k]] b[g, j, k mod m], on the digit products."""
+        """One level (r, m) of K5's plain version: the reference's stage,
+        out[g, k] = sum_j T[idx[j, k]] b[g, j, k mod m], on the digit
+        products."""
         f, n, nl = self.f, self.n, r * m
         x = src if perm is None else src[:, perm.long()]
         X = f.to_plain(x)                            # (nd, batch, n)
@@ -169,13 +239,13 @@ class FFTTensorCtx:
 
     def _transform(self, a, tbl):
         """a (batch, n, 10) Montgomery coefficients -> evaluations: K5
-        once per level, between two buffers."""
+        once per pass, between two buffers."""
         if a.dim() == 2:
             return self._transform(a[None], tbl)[0]
         bufs = (torch.empty_like(a), torch.empty_like(a))
         src, perm = a, self.perm
-        for i, (r, m) in enumerate(self.levels):
-            src = self.ntt_level(src, tbl, perm, r, m, out=bufs[i % 2])
+        for i, ps in enumerate(self.passes):
+            src = self.ntt_pass(src, tbl, perm, ps, out=bufs[i % 2])
             perm = None
         return src
 

@@ -4,8 +4,11 @@ matrices_to_device, eval_rows_device), the A z, B z and C z row
 evaluations that feed the QAP and SAP quotients.
 
 A matrix lives on the device in CSR: int32 row pointers and columns and
-(nnz, 10) int32 Montgomery values (ops/field.py).  On a card the product
-is K6 `spmv_rows` (csrc/spmv.cu), one thread per row.  On the CPU it is
+(nnz, 10) int32 Montgomery values (ops/field.py), each row's unit entries
+(value one) first.  On a card the product is K6 `spmv_rows`
+(csrc/spmv.cu): `bin_rows` orders the rows once per matrix, those of more
+than WARP_MIN entries one warp each, the rest one thread each.  On the CPU
+it is
 the reference's product-then-segmented-sum in torch: every entry's
 val * z[col], then each row's run of terms summed pairwise, level by
 level.  The reference splits the entries into chunks of MAX_CHUNK to
@@ -22,6 +25,25 @@ import torch
 from .. import native
 from .field import _LAUNCHES, _PLAIN, NLIMB, FieldCtx, upload_limbs
 
+# K6 gives a row of more entries than this one warp (csrc/spmv.cu)
+WARP_MIN = 32
+
+
+def bin_rows(counts, units):
+    """K6's row order: (order (n_rows,) int32, n_warp).  The n_warp rows
+    of more than WARP_MIN entries come first, longest first, one warp
+    each; then the others, one thread each, by products (entries that
+    are not units) and then units, most first, so that a warp's rows cost
+    alike.  counts, units: entries and unit entries per row."""
+    counts = np.asarray(counts, dtype=np.int64)
+    units = np.asarray(units, dtype=np.int64)
+    long_ = counts > WARP_MIN
+    warp = np.flatnonzero(long_)
+    warp = warp[np.argsort(-counts[warp], kind="stable")]
+    rest = np.flatnonzero(~long_)
+    rest = rest[np.lexsort((-units[rest], -(counts - units)[rest]))]
+    return np.concatenate([warp, rest]).astype(np.int32), int(warp.size)
+
 
 class SparseMatVec:
     """One sparse matrix (rows x cols) over Fp in CSR on `device`."""
@@ -36,12 +58,22 @@ class SparseMatVec:
         counts = np.bincount(rows, minlength=n_rows)[:n_rows]
         self.nnz = int(rows.shape[0])
         self.max_row = int(counts.max()) if n_rows else 0
+        canon = native.ints_to_limbs(vals)        # (nnz, 5) u64
+        unit = (canon[:, 0] == 1) & ~canon[:, 1:].any(axis=1)
+        # each row's unit entries first (rows_idx stays sorted)
+        ent = np.lexsort((~unit, rows))
+        cols = np.asarray(cols_idx, dtype=np.int32)[ent]
+        canon, unit = canon[ent], unit[ent]
+        units = np.bincount(rows[unit], minlength=n_rows)[:n_rows]
+        self.n_units = int(unit.sum())
+        order, self.n_warp = bin_rows(counts, units)
         self.rowptr = torch.from_numpy(np.concatenate(
             [[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
+        self.units = torch.from_numpy(units.astype(np.int32)).to(dev)
+        self.order = torch.from_numpy(order).to(dev)
         self.rows = torch.from_numpy(rows).to(dev)
-        self.cols = torch.from_numpy(np.asarray(cols_idx, dtype=np.int32)
-                                     ).to(dev)
-        canon = upload_limbs(native.ints_to_limbs(vals), dev)
+        self.cols = torch.from_numpy(cols).to(dev)
+        canon = upload_limbs(canon, dev)
         self.vals = f.to_mont(canon) if self.nnz else canon
         self.device = self.vals.device        # "cuda" -> "cuda:0"
 
@@ -75,9 +107,11 @@ class SparseMatVec:
         from .kernels import lib
 
         rc = lib("spmv").pcd_spmv_rows(
-            self.rowptr.data_ptr(), self.cols.data_ptr(),
-            self.vals.data_ptr(), z_mont.data_ptr(), out.data_ptr(),
-            self.n_rows, self.f.kconsts.ctypes.data_as(ctypes.c_void_p),
+            self.rowptr.data_ptr(), self.units.data_ptr(),
+            self.cols.data_ptr(), self.vals.data_ptr(),
+            self.order.data_ptr(), z_mont.data_ptr(), out.data_ptr(),
+            self.n_rows, self.n_warp,
+            self.f.kconsts.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"spmv_rows launch failed: CUDA error {rc}")

@@ -236,9 +236,9 @@ def test_device_quotient_matches_reference(cfg_name, stream, monkeypatch):
     Fr = tcfg.Fr.NAME
     from pcd_tpu_torch.ops.fft_tensor import fft_ctx
 
-    levels = len(fft_ctx(tcfg.Fr, tpk.domain_size, "cpu").levels)
+    npass = len(fft_ctx(tcfg.Fr, tpk.domain_size, "cpu").passes)
     assert plain[("spmv_rows", Fr)] == 3
-    assert plain[("ntt_level", Fr)] == 3 * levels
+    assert plain[("ntt_pass", Fr)] == 3 * npass
     assert plain.get(("madd_accumulate", tcfg.g1.name), 0) == (3 if stream
                                                                else 0)
     assert tec.launch_counts() == {}

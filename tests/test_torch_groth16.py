@@ -97,9 +97,9 @@ def test_device_quotient_matches_reference(stream, monkeypatch):
     assert TS.groth16_proof_to_bytes(proof) == RS.groth16_proof_to_bytes(ref)
     x = cfg.Fr.from_int(pow(3, 1 << 40, cfg.Fr.MODULUS))
     assert g16.verify(vk, [x], proof)
-    levels = len(fft_ctx(cfg.Fr, pk.domain_size, "cpu").levels)
+    npass = len(fft_ctx(cfg.Fr, pk.domain_size, "cpu").passes)
     assert plain[("spmv_rows", cfg.Fr.NAME)] == 3
-    assert plain[("ntt_level", cfg.Fr.NAME)] == 3 * levels
+    assert plain[("ntt_pass", cfg.Fr.NAME)] == 3 * npass
     assert plain.get(("madd_accumulate", cfg.g1.name), 0) == (4 if stream
                                                               else 0)
     assert ec.launch_counts() == {}

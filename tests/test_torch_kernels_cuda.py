@@ -320,9 +320,10 @@ def _field_rows(F, n, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fld", QFIELDS, ids=QIDS)
 def test_ntt_levels_match_plain(fld, cuda_device):
-    """K5, every level of a transform with radixes 2, 3, 5 or 7 (a batch
-    of two, the first level through the digit reversal), against its
-    plain version limb for limb; the transforms end to end too."""
+    """K5, every pass of a transform with radixes 2, 3, 5 or 7 (a batch
+    of two, the first pass through the digit reversal), against its plain
+    version (the pass's levels in turn) limb for limb; the transforms end
+    to end too."""
     from pcd_tpu_torch.ops.fft_tensor import fft_ctx
     from pcd_tpu_torch.poly.domain import EvaluationDomain
 
@@ -332,17 +333,58 @@ def test_ntt_levels_match_plain(fld, cuda_device):
     ctx = fft_ctx(F, dom.n, cuda_device)
     a = torch.stack([_field_rows(F, dom.n, 1), _field_rows(F, dom.n, 2)]
                     ).to(cuda_device)
-    key = ("ntt_level", F.NAME)
+    key = ("ntt_pass", F.NAME)
     src, perm = a, ctx.perm
-    for r, m in ctx.levels:
+    for ps in ctx.passes:
         before = launch_counts().get(key, 0)
-        got = ctx.ntt_level(src, ctx.tbl_fwd, perm, r, m)
+        got = ctx.ntt_pass(src, ctx.tbl_fwd, perm, ps)
         assert launch_counts()[key] == before + 1
-        assert torch.equal(got, ctx.ntt_level_plain(src, ctx.tbl_fwd, perm,
-                                                    r, m)), (r, m)
+        assert torch.equal(got, ctx.ntt_pass_plain(src, ctx.tbl_fwd, perm,
+                                                   ps)), ps
         src, perm = got, None
     back = ctx.coset_ifft(ctx.coset_fft(ctx.ifft(ctx.fft(a))))
     assert torch.equal(back, a)
+
+
+# the real domains (field, points, the provers' batch) and small ones with
+# their radix mixes and a tile small enough for two passes of two blocks
+NTT_DOMAINS = [("mnt_cycle", "main", 225_792, 3, None),
+               ("mnt_cycle", "help", 31_360, 3, None),
+               ("mnt_cycle", "main", 688_128, 2, None),
+               ("mnt_cycle", "help", 107_520, 2, None),
+               ("mnt_cycle", "main", 2 ** 3 * 3 * 7 * 7, 2, 64),
+               ("mnt_cycle", "help", 2 ** 2 * 5 * 7 * 7, 2, 128),
+               ("mnt_cycle", "main", 2 ** 4 * 3 * 7, 2, 32),
+               ("mnt_cycle", "help", 2 ** 3 * 3 * 5 * 7, 2, 64),
+               ("mnt_cycle", "main", 2 ** 3 * 3 * 7 * 7, 1, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dom", NTT_DOMAINS,
+                         ids=[f"{d[1]}-{d[2]}-x{d[3]}-tile{d[4]}"
+                              for d in NTT_DOMAINS])
+def test_ntt_pass_domains_match_plain(dom, cuda_device):
+    """K5 pass by pass, forward and inverse table, on the four real
+    domains at the provers' batch and on small mixed-radix domains with
+    a forced small tile (several passes, several blocks a pass, a last
+    block part full), against its plain version limb for limb."""
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, passes
+
+    cyc, side, n, batch, tile = dom
+    F = getattr(getattr(M, cyc)(), side).Fr
+    ctx = fft_ctx(F, n, cuda_device)
+    ps_all = ctx.passes if tile is None else passes(n, ctx.levels, tile)
+    assert len(ps_all) <= 3 if tile is None else len(ps_all) >= 2
+    a = torch.stack([_field_rows(F, n, s) for s in range(batch)]).to(
+        cuda_device)
+    for tbl in (ctx.tbl_fwd, ctx.tbl_inv):
+        src, perm = a, ctx.perm
+        for ps in ps_all:
+            got = ctx.ntt_pass(src, tbl, perm, ps)
+            assert torch.equal(got, ctx.ntt_pass_plain(src, tbl, perm, ps)), ps
+            src, perm = got, None
+        if tile is not None:
+            assert torch.equal(src, ctx._transform(a, tbl))
 
 
 @pytest.mark.cuda
@@ -402,3 +444,33 @@ def test_fp_vec_matches_plain(fld, cuda_device):
         for g, w in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.cuda
+def test_spmv_long_rows_match_plain(cuda_device):
+    """K6 on rows of 0, 1, 2, 31, 32, 33, 299 and 1,000 entries, two in
+    five values one (warp rows, thread rows, unit entries skipped),
+    against its plain version and the C++ CSR matvec."""
+    import random
+
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.field import limbs_host, upload_limbs
+    from pcd_tpu_torch.ops.matvec_tensor import matrices_to_device
+
+    F = M.mnt_cycle().main.Fr
+    p = F.MODULUS
+    rng = random.Random(7)
+    n_cols = 1200
+    rows = [tuple({c: 1 if rng.random() < 0.4 else rng.randrange(2, p)
+                   for c in rng.sample(range(n_cols), L)} for _ in range(3))
+            for L in (0, 1, 2, 31, 32, 33, 299, 1000, 3, 7) * 40]
+    z = [rng.randrange(p) for _ in range(n_cols)]
+    mats = matrices_to_device(F, rows, len(rows), n_cols, cuda_device)
+    assert all(m.n_warp == 120 and m.n_units for m in mats)
+    f = mats[0].f
+    zm = f.to_mont(upload_limbs(native.ints_to_limbs(z), cuda_device))
+    want = native.SpMatrices(p, rows, len(rows)).apply_all_limbs(z)
+    for k, m in enumerate(mats):
+        got = m.apply(zm)
+        assert torch.equal(got, m.apply_plain(zm)), k
+        assert np.array_equal(limbs_host(f.from_mont(got)), want[k]), k
