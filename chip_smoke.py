@@ -45,7 +45,9 @@ status line:
      host steps' interquartile distance; then one untimed warm step under
      the device quotient (its set-up) and ten warm steps with the
      quotient tier (msm_dispatch.QUOTIENT) in five such pairs, K5, K6 and
-     K7 launched under "device" only, with the same medians (and the
+     K7 launched under "device" only (K5 once a pass of hpoly's three
+     transforms, K7 twice a field for Groth16 and four times for GM17:
+     the quotient's scalings run in K5), with the same medians (and the
      h_poly, matvec and hpoly spans) and the verdict by the same rule;
      then one warm step under each quotient tier inside device_trace
      (torch.profiler; chiprun_out/device_trace/), with the card's busy
@@ -59,7 +61,7 @@ status line:
      mixed chains mnt4_mix_groth16_gm17 and mnt4_mix_gm17_groth16, each
      at full width; K1 exactly once per commitment MSM of either SNARK;
      each chain then one more warm step under the device quotient, which
-     verifies, K5-K7 launched;
+     verifies, K5-K7 launched as in phase 4;
   7  the Marlin SNARK (KZG10 over the real curves, universal SRS) on
      MNT4-298, the main side of mnt4_marlin, and MNT6-298, its help side,
      on a squaring chain of 2^MARLIN_LOG_M constraints in place of the
@@ -84,17 +86,21 @@ status line:
      turns, with the digits, sort and placement times beside them;
  10  the device quotient, after phase 4: K5 (every pass of a forward
      transform, its passes and tile printed, at most 3 launches a
-     transform in every direction) and K7 (every op) exactly against
-     their plain versions on the four real domains, random inputs from a
+     transform in every direction; every prologue x epilogue
+     instantiation on the first pass and the epilogues on the last; the
+     three transforms of hpoly) and K7 (every op) exactly against their
+     plain versions on the four real domains, random inputs from a
      seed: MNT4-298 Fr at 225,792 (Groth16 main) and 688,128 (GM17 main)
      points, MNT6-298 Fr at 31,360 and 107,520; K6 on the three real
      Groth16 matrices of phase 4's pk, main and help, against its plain
      version and the C++ matvec on the z of a host-quotient warm step,
      with each matrix's row lengths, warp rows and share of unit
      entries; the device h equal to that step's C++ hpoly h, main and
-     help; ptxas' registers for K5 and K6; CUDA-event ms per kernel and
-     per quotient, each bound also by the count of every entry and of
-     r - 1 products at every level.  Without phase 4
+     help; ptxas' registers for K5 (each instantiation; a spill fails)
+     and K6; CUDA-event ms per kernel and per quotient, and each
+     quotient's kernel time from a torch.profiler trace
+     (utils/profiling.device_trace), each bound also by the count of
+     every entry and of r - 1 products at every level.  Without phase 4
      only the first part runs;
   8  (only when asked for alone) the real mnt4_marlin PCD chain through
      the universal setup (reference tests/mnt4_marlin.rs:141-204):
@@ -118,6 +124,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import threading
@@ -241,6 +248,43 @@ def device_ms(fn, reps, dev, warm=True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def kernel_ms(fn, logdir, launches=None, reps=5):
+    """Device time of one fn() in ms: the busy time of the kernels in a
+    torch.profiler trace (utils/profiling.device_trace), so host gaps
+    between launches and copies do not count.  The trace holds 1 + reps
+    calls of the same work, as the profiler may drop a kernel's record;
+    the last reps x `launches` kernels recorded are summed (`launches`
+    None: the kernels recorded over 1 + reps, rounded down; None when
+    fewer were recorded)."""
+    import torch
+
+    from pcd_tpu_torch.utils.profiling import device_trace
+
+    fn()
+    torch.cuda.synchronize()
+    with device_trace(logdir):
+        for _ in range(1 + reps):
+            fn()
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in events if e.get("cat") == "kernel")
+    if launches is None:
+        launches = len(kern) // (1 + reps)
+    if not launches or len(kern) < reps * launches:
+        print(f"kernel_ms: {len(kern)} kernels in {logdir}, "
+              f"{(1 + reps) * launches} launched: not measured", flush=True)
+        return None
+    busy, end = 0.0, None
+    for a, b in kern[len(kern) - reps * launches:]:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3 / reps
 
 
 def phase_build():
@@ -870,6 +914,31 @@ def check_once_per_msm(counts, forms, what):
 
 # the device quotient's kernels (on the path only under QUOTIENT "device")
 QUOTIENT_KERNELS = ("ntt_pass", "spmv_rows", "fp_vec")
+# K7 launches per device-quotient warm step and field: z to Montgomery and
+# the replayed-witness check; GM17 also the SAP evaluations and their
+# extension from Montgomery.  The quotient's scalings run in K5, which
+# launches once per pass of each of hpoly's three transforms.
+K7_PER_QUOTIENT = {"Groth16": 2, "GM17": 4}
+
+
+def check_quotient_launches(counts, pcd, pk, what):
+    """K5 three transforms' worth of passes and K7 K7_PER_QUOTIENT times
+    per field of a device-quotient warm step, or AssertionError."""
+    from pcd_tpu_torch.ops.fft_tensor import passes, plan
+    from pcd_tpu_torch.poly.domain import EvaluationDomain
+
+    ic = pcd.ic
+    for snark, F, spk in ((ic.main_snark, ic.main_field, pk.main_pk),
+                          (ic.help_snark, ic.help_field, pk.help_pk)):
+        kind, n = type(snark).__name__, spk.domain_size
+        want = {"ntt_pass": 3 * len(passes(n, plan(EvaluationDomain(
+            F, n).factors))), "fp_vec": K7_PER_QUOTIENT[kind]}
+        for k, v in want.items():
+            got = counts.get((k, F.NAME), 0)
+            if got != v:
+                raise AssertionError(f"{what}: {k}[{F.NAME}] launched {got} "
+                                     f"times, expected {v} ({kind}, n = "
+                                     f"{n})")
 
 
 def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
@@ -878,7 +947,8 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     in `turns`: each its launches counted alone (K1 and K4 once per
     commitment MSM; sched_digits twice a prove under the device
     scheduler and never under the host one; K5, K6 and K7 under the
-    device quotient only) and its spans; the last proof of each setting
+    device quotient only, K5 and K7 as check_quotient_launches says) and
+    its spans; the last proof of each setting
     verified.  The verdict: "device" when its step is shorter in at
     least nine tenths of the adjacent pairs and its median shorter than
     the host's by more than the host steps' interquartile distance.
@@ -920,6 +990,7 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
                 if not all(quot.values()):
                     raise AssertionError(f"{what}: a device-quotient kernel "
                                          f"never launched: {quot}")
+                check_quotient_launches(got, pcd, pk, what)
                 if dev_counts is None:
                     dev_counts = got
             elif any(quot.values()):
@@ -1349,6 +1420,10 @@ def rand_elems(shape, p, dev, gen):
     return w.to(torch.int32)
 
 
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
 def timed_plain(fn, dev):
     """(result, host-clock ms) of one call of a plain version."""
     sync(dev)
@@ -1356,6 +1431,44 @@ def timed_plain(fn, dev):
     out = fn()
     sync(dev)
     return out, (time.perf_counter() - t0) * 1e3
+
+
+# K5's prologue x epilogue instantiations as ntt_pass takes them: name ->
+# (source rows or None for the domain's batch, pre, abc, post), the tables
+# by FFTTensorCtx attribute; prologues on the first pass, epilogues on the
+# first and the last
+K5_MODES = {"plain": (None, None, False, None),
+            "pre table": (None, "coset_tbl", False, None),
+            "pre scalar": (None, "n_inv", False, None),
+            "abc 3 rows": (3, None, True, None),
+            "abc 2 rows": (2, None, True, None),
+            "post table": (None, None, False, "ninv_coset_inv_tbl"),
+            "post scalar": (None, None, False, "n_inv"),
+            "pre + post": (None, "coset_tbl", False, "ninv_coset_tbl"),
+            "abc + post plain": (3, None, True, "ninv_coset_inv_plain"),
+            "abc 2 rows + post scalar": (2, None, True, "n_inv")}
+
+
+def plain_transform(fctx, x, tbl, pre=None, abc=None, post=None):
+    """_transform on K5's plain version, pass by pass."""
+    perm, last = fctx.perm, len(fctx.passes) - 1
+    for i, ps in enumerate(fctx.passes):
+        x = fctx.ntt_pass_plain(x, tbl, perm, ps,
+                                pre if i == 0 else None,
+                                abc if i == 0 else None,
+                                post if i == last else None)
+        perm = None
+    return x
+
+
+def quotient_transforms(fctx, x, s, tr=None):
+    """hpoly's three transforms of x (rows, n, 10) with the element s as
+    the ABC prologue's, through `tr` (FFTTensorCtx._transform, or
+    plain_transform)."""
+    tr = tr or fctx._transform
+    ev = tr(x, fctx.tbl_inv, post=fctx.ninv_coset_tbl)
+    ev = tr(ev, fctx.tbl_fwd)
+    return tr(ev, fctx.tbl_inv, abc=s, post=fctx.ninv_coset_inv_plain)
 
 
 # the real domains of the quotient: (side, points, transform batch)
@@ -1388,10 +1501,18 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
     dev = torch.device(dev)
     counted = launch_counts if dev.type == "cuda" else plain_counts
     for name in ("ntt", "spmv"):
+        inst = ""
         for line in kernels.BUILD_INFO.get(name, {}).get("ptxas",
                                                          "").splitlines():
+            m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILi(\d)"
+                          r"ELi(\d)E", line)
+            if m:                   # K5's <prologue, epilogue> modes
+                inst = f" {m.group(1)}<{m.group(2)}, {m.group(3)}>"
             if any(w in line for w in ("registers", "spill")):
-                say(phase, f"ptxas {name}: {line.strip()}")
+                say(phase, f"ptxas {name}{inst}: {line.strip()}")
+                if name == "ntt" and re.search(r"[1-9]\d* bytes spill st",
+                                               line):
+                    raise AssertionError(f"K5{inst} spills: {line.strip()}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     cyc = M.mnt_cycle()
@@ -1418,6 +1539,22 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
             src, perm = got, None
         if not torch.equal(fctx.ifft(src), a):
             raise AssertionError(f"K5 {F.NAME} n={n}: ifft(fft(a)) != a")
+        # every prologue x epilogue instantiation on the first pass, the
+        # epilogues on the last pass too
+        x3 = rand_elems((3, n), F.MODULUS, dev, gen)
+        first, last = fctx.passes[0], fctx.passes[-1]
+        for name, (rows, pre, abc, post) in K5_MODES.items():
+            kw = {"pre": pre and getattr(fctx, pre),
+                  "abc": x3[0, :1] if abc else None,
+                  "post": post and getattr(fctx, post)}
+            x = x3[:rows or batch]
+            for ps, pm in [(first, fctx.perm)] + (
+                    [(last, None)] if pre is None and not abc else []):
+                got = fctx.ntt_pass(x, fctx.tbl_inv, pm, ps, **kw)
+                if not torch.equal(got, fctx.ntt_pass_plain(
+                        x, fctx.tbl_inv, pm, ps, **kw)):
+                    raise AssertionError(f"K5 {F.NAME} n={n} {name} at M = "
+                                         f"{ps.M}: kernel != plain")
         per = {}
         for fn in ("fft", "ifft", "coset_fft", "coset_ifft"):
             before = counted().get(("ntt_pass", F.NAME), 0)
@@ -1429,8 +1566,9 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
         ms = device_ms(lambda: fctx.fft(a), 3, dev)
         # the products the transform needs: one a pair at radix 2, r - 1
         # an output above; the per-level count, r - 1 at every level, too
-        mads = batch * ops1 * sum(n // 2 if r == 2 else n * (r - 1)
-                                  for r, _ in fctx.levels)
+        prods = sum(n // 2 if r == 2 else n * (r - 1)
+                    for r, _ in fctx.levels)
+        mads = batch * ops1 * prods
         mads_old = batch * ops1 * n * sum(r - 1 for r, _ in fctx.levels)
         form = (f"{F.NAME} n={n} x{batch}, one transform of "
                 f"{len(fctx.levels)} levels in {len(fctx.passes)} passes")
@@ -1443,24 +1581,51 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
                                f"{[r for r, *_ in ps.levels]}"
                                for ps in fctx.passes)
             + f"; launches a transform {json.dumps(per)}; every pass "
-              f"exact against plain, ifft(fft) = id; {ms:.3f} ms, bound "
+              f"exact against plain, ifft(fft) = id, every prologue and "
+              f"epilogue ({', '.join(K5_MODES)}) exact against plain; "
+              f"{ms:.3f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
               f"{rec['bound_ms'] / ms:.1%}; by the earlier count "
               f"{old['bound_ms']:.4f} ms, {old['bound_ms'] / ms:.1%}), "
               f"plain {plain_ms:.0f} ms; context with tables {t_ctx:.2f}s")
+        # hpoly's three transforms (batch rows in, the ABC pass to one):
+        # the first's epilogue and the last's prologue and epilogue
+        # products, the ABC pass's extra source rows and the scaling
+        # tables counted
+        xq, sq = x3[:batch], x3[0, :1]
+        got = quotient_transforms(fctx, xq, sq)
+        want, plain_ms = timed_plain(lambda: quotient_transforms(
+            fctx, xq, sq, lambda x, tbl, **kw: plain_transform(
+                fctx, x, tbl, **kw)), dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {F.NAME} n={n}: hpoly's transforms "
+                                 f"!= plain")
+        ms = device_ms(lambda: quotient_transforms(fctx, xq, sq), 3, dev)
+        mads = ops1 * (2 * batch * prods + batch * n + prods + 3 * n)
+        nbytes_q = ((2 * batch * n + 2 * n) + (2 * batch * n + n)
+                    + (batch * n + 3 * n)) * 40 + 3 * n * 4 + 40
+        form = (f"{F.NAME} n={n} x{batch}, hpoly's three transforms "
+                f"({3 * len(fctx.passes)} passes, the scalings and "
+                f"(a b - c) s in their loads and stores)")
+        rec = record("ntt_pass", form, 0, 0, ms, plain_ms, nbytes_q, mads)
+        results.append(rec)
+        pend.append((rec, chain, "ntt_pass", F.NAME))
+        say(phase, f"K5 ntt_pass {form}: exact against plain; {ms:.3f} ms, "
+                   f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                   f"{rec['bound_ms'] / ms:.1%}), plain {plain_ms:.0f} ms")
         # K7: every op against its plain version; the record is the
-        # coset-table product at the transform's batch
+        # replayed-witness check, (a b - c) s over n rows
         x, y, z = (rand_elems((n,), F.MODULUS, dev, gen) for _ in range(3))
         nc, ni = (n - 64) // 2, 40
         r2, one = f.const(f.r * f.r, dev), f.const(1, dev)
         zi = x[nc:nc + ni]
         cases = {                      # (kernel, plain version)
-            "coset table": (lambda: f.vmul(a, fctx.coset_tbl),
-                            lambda: f.vmul_plain(a, fctx.coset_tbl)),
+            "check": (lambda: f.abc(x, y, z, fctx.n_inv),
+                      lambda: f.abc_plain(x, y, z, fctx.n_inv)),
+            "table": (lambda: f.vmul(a, fctx.coset_tbl),
+                      lambda: f.vmul_plain(a, fctx.coset_tbl)),
             "scalar": (lambda: f.vmul(x, fctx.n_inv),
                        lambda: f.vmul_plain(x, fctx.n_inv)),
-            "abc": (lambda: f.abc(x, y, z, fctx.n_inv),
-                    lambda: f.abc_plain(x, y, z, fctx.n_inv)),
             "to_mont": (lambda: f.to_mont(x), lambda: f.vmul_plain(x, r2)),
             "from_mont": (lambda: f.from_mont(x),
                           lambda: f.vmul_plain(x, one)),
@@ -1475,17 +1640,17 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
                 if not torch.equal(g, w):
                     raise AssertionError(f"K7 {F.NAME} n={n} {name}: "
                                          f"kernel != plain")
-            if name == "coset table":
+            if name == "check":
                 plain_ms = ms_p
-        ms = device_ms(cases["coset table"][0], 5, dev)
-        form = f"{F.NAME} n={n} x{batch}, the coset-table product"
-        rec = record("fp_vec", form, 0, 0, ms, plain_ms,
-                     (2 * batch * n + n) * 40, batch * n * ops1)
+        ms = device_ms(cases["check"][0], 5, dev)
+        form = f"{F.NAME} n={n}, the replayed-witness check (a b - c) s"
+        rec = record("fp_vec", form, 0, 0, ms, plain_ms, 4 * n * 40 + 40,
+                     2 * n * ops1)
         results.append(rec)
         pend.append((rec, chain, "fp_vec", F.NAME))
         say(phase, f"K7 fp_vec {F.NAME} n={n}: every op ({', '.join(cases)})"
-                   f" exact against plain; the coset-table product x{batch} "
-                   f"{ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                   f" exact against plain; the check over {n} rows "
+                   f"{ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
                    f"({rec['bound_by']}), plain {plain_ms:.0f} ms")
     if took is None or "captured" not in took:
         say(phase, "no phase 4 run: K6 and the quotients against the C++ "
@@ -1562,14 +1727,24 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
         q_ms = device_ms(quotient, 3, dev)
         hp_ms = device_ms(lambda: hpoly(fctx, evs[0], evs[1], evs[2],
                                         zh_inv, check_rows), 3, dev)
+        # kernel time (profiler): every kernel of a call, torch's copies
+        # and reductions too, host gaps and the z upload left out
+        q_kern = hp_kern = None
+        if dev.type == "cuda":
+            logdir = os.path.join(HERE, "build", "quotient_trace", side)
+            q_kern = kernel_ms(quotient, logdir + "_quotient")
+            hp_kern = kernel_ms(lambda: hpoly(fctx, evs[0], evs[1], evs[2],
+                                              zh_inv, check_rows),
+                                logdir + "_hpoly")
         t0 = time.perf_counter()
         native.hpoly(F.MODULUS, fctx.domain.omega, fctx.domain.coset_shift,
                      zh_inv, *cap["abc"], check_rows=check_rows)
         cpp_ms = (time.perf_counter() - t0) * 1e3
         say(phase, f"Groth16 {side} quotient n={n}: device h == C++ "
                    f"hpoly's h on the warm step's z; device quotient (z "
-                   f"upload, K7, 3 x K6, hpoly) {q_ms:.3f} ms, hpoly "
-                   f"{hp_ms:.3f} ms (CUDA events), C++ hpoly "
+                   f"upload, K7, 3 x K6, hpoly) {q_ms:.3f} ms CUDA events, "
+                   f"{fmt_ms(q_kern)} kernel time; hpoly {hp_ms:.3f} ms "
+                   f"CUDA events, {fmt_ms(hp_kern)} kernel time; C++ hpoly "
                    f"{cpp_ms:.1f} ms wall; launches per quotient "
                    + json.dumps(per))
     return pend

@@ -4,7 +4,7 @@ checkout:
 
     python3 kernel_ab.py --other DIR [--sweep] [--k4]
     python3 kernel_ab.py --k4
-    python3 kernel_ab.py --quotient --other DIR [--sweep]
+    python3 kernel_ab.py --quotient --other DIR
 
 --other DIR: K1 (madd_accumulate) of this checkout against K1 of another
 copy of pcd_tpu_torch/csrc, and the integer multiply-adds one field
@@ -35,27 +35,23 @@ events in the order K4, variant Ms, variant Ms reversed, K4.  Then one thread's 
 K4's add (pcd_add_chain) in 1, 132, 264 and 400 blocks of 128 threads
 (400: K4's grid at c = 12), which gives the latency of one add.
 
---quotient --other DIR [--sweep]: the quotient's K5 and K6 of this
-checkout against those of another copy of pcd_tpu_torch/csrc (DIR, e.g.
-the parent's: its ntt.cu has the per-level entry pcd_ntt_level, its
-spmv.cu one thread a row), in place of K1.  Both trees launch through
-their raw C entries into buffers allocated once, and each is timed twice
-in the order other, this, this, other: by CUDA events around five calls,
-and by the kernels' busy time in a torch.profiler trace of six calls,
-the last five calls' worth of kernels recorded (host gaps between
-launches left out):
-
-  ntt   chip_smoke.py phase 10's four domains at the provers' batch,
-        random inputs from a seed, one forward transform: the other tree
-        a launch per level, this tree a launch per pass
-        (fft_tensor.passes at the domain's tile); both equal FFTTensorCtx.fft limb
-        for limb; with --sweep, this tree's kernel again at each tile of
-        NTT_TILES, in turns;
-  spmv  the Groth16 main circuit's A of mnt4_groth16 (its MainCircuit
-        synthesized as the setup does, the CRH from a ChaCha seed, the
-        chains' predicate) and a random z from a seed: the other tree's
-        spmv_rows on this tree's CSR (its unit entries multiplied by R)
-        against this one, both equal to SparseMatVec.apply.
+--quotient --other DIR: the device quotient `hpoly` of this checkout
+against the one of another copy of pcd_tpu_torch/csrc (DIR, e.g. the
+parent's: its ntt.cu has the entry pcd_ntt_pass without a prologue or
+an epilogue, so every scaling is a launch of its fp_vec.cu's K7), in
+place of K1, on chip_smoke.py phase 10's four domains at the provers'
+batch (the GM17 domains in the squaring form), random evaluations from
+a seed.  Both
+trees launch through their raw C entries into buffers allocated once:
+the other the K7 check, ifft (K5 passes, n^-1), coset_fft (the coset
+table, K5 passes), (a b - c) Z_H^-1, coset_ifft (K5 passes, n^-1, the
+inverse coset table) and from_mont; this tree the K7 check and three
+transforms, the scalings in K5's prologues and epilogues.  Both equal
+fft_tensor.hpoly limb for limb.  Each is timed twice in the order
+other, this, this, other: by CUDA events around five calls, and by the
+kernels' busy time in a torch.profiler trace of six calls, the last
+five calls' worth of kernels recorded (host gaps between launches left
+out).
 
 Prints one line per measurement and a JSON summary as the last line.
 """
@@ -80,8 +76,6 @@ SWEEP = {f"minb{b}": [f"-DK1_MINB{d}={b}" for d in (1, 2, 3)]
 RUNSUM = os.path.join(HERE, "kernel_ab_runsum.cu")
 RUNSUM_M = (2, 4, 8, 16)
 CHAIN_GRIDS, CHAIN_N = (1, 132, 264, 400), 32
-# K5 tiles swept by --quotient --sweep (points a block holds)
-NTT_TILES = (2048, 1024, 512, 256)
 FORMS = (("mnt4_298.G1", "main", "g1", 24), ("mnt4_298.G2", "main", "g2", 24),
          ("mnt6_298.G1", "help", "g1", 4), ("mnt6_298.G2", "help", "g2", 4))
 PROBE = r"""
@@ -304,83 +298,29 @@ def k4_ab(lib, summary):
         torch.cuda.empty_cache()
 
 
-def load_other_quotient(ntt_so, spmv_so):
-    """The per-level K5 and one-thread-a-row K6 entries (csrc/ntt.cu,
-    csrc/spmv.cu of DIR)."""
+def load_other_quotient(ntt_so, fpv_so):
+    """The other tree's K5 entry without prologue or epilogue and its K7
+    (csrc/ntt.cu, csrc/fp_vec.cu of DIR)."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    ntt, spmv = ctypes.CDLL(ntt_so), ctypes.CDLL(spmv_so)
-    ntt.pcd_ntt_level.restype = ci
-    ntt.pcd_ntt_level.argtypes = [vp] * 4 + [cl, ci, ci, ci, vp, vp]
-    spmv.pcd_spmv_rows.restype = ci
-    spmv.pcd_spmv_rows.argtypes = [vp] * 5 + [cl, vp, vp]
-    return ntt, spmv
-
-
-def groth16_main_a():
-    """The Groth16 main circuit's A of mnt4_groth16 on the card, as the
-    prover's device matrices hold it (rows padded to the domain)."""
-    import chip_smoke as cs
-    from pcd_tpu_torch import configs
-    from pcd_tpu_torch.ops.matvec_tensor import matrices_to_device
-    from pcd_tpu_torch.pcd.ec_cycle import MainCircuit
-    from pcd_tpu_torch.poly.domain import EvaluationDomain
-    from pcd_tpu_torch.utils.rng import ChaChaRng
-
-    ic = configs.mnt4_groth16("cuda").ic
-    snark, F = ic.main_snark, ic.main_field
-    circ = MainCircuit(ic, cs.counter_predicate(F), ic.crh.setup(
-        ChaChaRng(b"kernel_ab main A")))
-    csys = snark._synthesize(circ)
-    rows = snark._matrix_rows(csys)
-    n = EvaluationDomain.new(F, len(rows)).n
-    n_cols = csys.num_instance + csys.num_witness
-    return matrices_to_device(F, rows, n, n_cols, "cuda")[0]
-
-
-def kernel_ms(fn, logdir, launches, reps=5):
-    """Device time of one fn() in ms: the busy time of the kernels in a
-    torch.profiler trace, so host gaps between launches do not count.
-    The trace holds 1 + reps calls of the same work, as the profiler may
-    drop a kernel's record; the last reps x `launches` kernels recorded
-    are summed (None when fewer were recorded)."""
-    import json
-
-    import torch
-
-    from pcd_tpu_torch.utils.profiling import device_trace
-
-    fn()
-    torch.cuda.synchronize()
-    with device_trace(logdir):
-        for _ in range(1 + reps):
-            fn()
-        torch.cuda.synchronize()
-    with open(os.path.join(logdir, "trace.json")) as fh:
-        events = json.load(fh)["traceEvents"]
-    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                  for e in events if e.get("cat") == "kernel")
-    if len(kern) < reps * launches:
-        print(f"kernel_ms: {len(kern)} kernels in {logdir}, "
-              f"{(1 + reps) * launches} launched: not measured", flush=True)
-        return None
-    busy, end = 0.0, None
-    for a, b in kern[len(kern) - reps * launches:]:
-        if end is None or a > end:
-            busy, end = busy + b - a, b
-        elif b > end:
-            busy, end = busy + b - end, b
-    return busy / 1e3 / reps
+    ntt, fpv = ctypes.CDLL(ntt_so), ctypes.CDLL(fpv_so)
+    ntt.pcd_ntt_pass.restype = ci
+    ntt.pcd_ntt_pass.argtypes = [vp] * 4 + [cl, ci, vp, vp, vp]
+    fpv.pcd_fp_vec.restype = ci
+    fpv.pcd_fp_vec.argtypes = [ci, cl, cl, cl] + [vp] * 9
+    return ntt, fpv
 
 
 def in_turns(fns, order, logdir):
     """Mean CUDA-event ms and mean kernel ms (None where no trace of it
     held its kernels) of each fns[name] = (fn, launches a call) over the
     names of `order` (each timed once per appearance)."""
+    import chip_smoke as cs
+
     ev, dv = {}, {}
     for i, name in enumerate(order):
         fn, launches = fns[name]
         ev.setdefault(name, []).append(ms(fn))
-        t = kernel_ms(fn, os.path.join(logdir, f"{i}"), launches)
+        t = cs.kernel_ms(fn, os.path.join(logdir, f"{i}"), launches)
         dv.setdefault(name, [])
         if t is not None:
             dv[name].append(t)
@@ -388,133 +328,119 @@ def in_turns(fns, order, logdir):
             {k: sum(v) / len(v) if v else None for k, v in dv.items()})
 
 
-def fmt_ms(t):
-    return "not measured" if t is None else f"{t:.4f} ms"
-
-
-def quotient_ab(libs, summary, out_dir, sweep):
-    """K5 and K6, this tree against the other, both launched through
-    their raw C entries into buffers allocated once, and this tree's K5
-    at each tile of NTT_TILES (see the module docstring)."""
+def quotient_ab(libs, summary, out_dir):
+    """hpoly, this tree against the other, both launched through their
+    raw C entries into buffers allocated once (see the module
+    docstring)."""
     import torch
 
     import chip_smoke as cs
     from pcd_tpu_torch.curves import models as M
-    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, ntt_tile, passes
+    from pcd_tpu_torch.ops.fft_tensor import (EPI_MUL, EPI_NONE, PRO_ABC,
+                                              PRO_NONE, fft_ctx, hpoly)
+    from pcd_tpu_torch.ops.field import FieldCtx
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     stream = torch.cuda.current_stream().cuda_stream
     cyc = M.mnt_cycle()
-    summary["ntt"], summary["spmv"] = {}, {}
+    summary["hpoly"] = {}
     for side, n, batch, _ in cs.QUOTIENT_DOMAINS:
         F = getattr(cyc, side).Fr
         fctx = fft_ctx(F, n, dev)
-        kc = fctx.f.kconsts.ctypes.data_as(ctypes.c_void_p)
-        a = cs.rand_elems((batch, n), F.MODULUS, dev, gen)
-        bufs = (torch.empty_like(a), torch.empty_like(a))
+        f = fctx.f
+        kc = f.kconsts.ctypes.data_as(ctypes.c_void_p)
+        geoms = [ps.geom() for ps in fctx.passes]
+        d = fctx.domain
+        zh_inv = pow(d.vanishing_poly_at(d.coset_shift), -1, f.p)
+        zh, one = f.mont(zh_inv, dev), f.const(1, dev)
+        coset_inv = fctx._pow_table(d.coset_shift_inv)
+        x = cs.rand_elems((batch, n), F.MODULUS, dev, gen)
+        sq = batch == 2                         # GM17: b is a
+        rows = (x[0], x[0], x[1]) if sq else (x[0], x[1], x[2])
+        bufs = [torch.empty_like(x) for _ in range(4)]
+        chk = torch.empty((n, 10), dtype=torch.int32, device=dev)
+        h1 = (torch.empty((1, n, 10), dtype=torch.int32, device=dev),
+              torch.empty((1, n, 10), dtype=torch.int32, device=dev))
 
-        def other():
-            src, perm = a, fctx.perm
-            for i, (r, m) in enumerate(fctx.levels):
-                rc = libs["ntt_other"].pcd_ntt_level(
-                    src.data_ptr(), bufs[i % 2].data_ptr(),
-                    fctx.tbl_fwd.data_ptr(),
-                    None if perm is None else perm.data_ptr(), n, batch, r,
-                    m, kc, stream)
+        def fpv(lib, op, nn, nb, a, b, c, s, out):
+            rc = lib.pcd_fp_vec(op, nn, nb, 0, a.data_ptr(), b.data_ptr(),
+                                None if c is None else c.data_ptr(),
+                                None if s is None else s.data_ptr(),
+                                out.data_ptr(), None, None, kc, stream)
+            if rc:
+                raise RuntimeError(f"fp_vec: CUDA error {rc}")
+            return out
+
+        def transform(src, tbl, nb, outs, pro=PRO_NONE, pv=None, np_=0,
+                      post=None, other=False):
+            perm, last = fctx.perm.data_ptr(), len(geoms) - 1
+            for i, geom in enumerate(geoms):
+                args = (src.data_ptr(), outs[i % 2].data_ptr(),
+                        tbl.data_ptr(), perm, n, nb,
+                        geom.ctypes.data_as(ctypes.c_void_p), kc, stream)
+                if other:
+                    rc = libs["ntt_other"].pcd_ntt_pass(*args)
+                else:
+                    e = post if i == last else None
+                    rc = libs["ntt"].pcd_ntt_pass(
+                        *args, pro if i == 0 else PRO_NONE,
+                        None if i or pv is None else pv.data_ptr(), np_,
+                        EPI_NONE if e is None else EPI_MUL,
+                        None if e is None else e.data_ptr(),
+                        0 if e is None else e.shape[0])
                 if rc:
-                    raise RuntimeError(f"other ntt_level: CUDA error {rc}")
-                src, perm = bufs[i % 2], None
+                    raise RuntimeError(f"ntt_pass: CUDA error {rc}")
+                src, perm = outs[i % 2], None
             return src
 
-        def this(ps_all):
-            geoms = [ps.geom() for ps in ps_all]
+        mul, abc = FieldCtx.FPV_MUL, FieldCtx.FPV_ABC
 
-            def run():
-                src, perm = a, fctx.perm
-                for i, geom in enumerate(geoms):
-                    rc = libs["ntt"].pcd_ntt_pass(
-                        src.data_ptr(), bufs[i % 2].data_ptr(),
-                        fctx.tbl_fwd.data_ptr(),
-                        None if perm is None else perm.data_ptr(), n, batch,
-                        geom.ctypes.data_as(ctypes.c_void_p), kc, stream)
-                    if rc:
-                        raise RuntimeError(f"ntt_pass: CUDA error {rc}")
-                    src, perm = bufs[i % 2], None
-                return src
-            return run
+        def other():
+            lib = libs["fpv_other"]
+            fpv(lib, abc, n, 1, *rows, one, chk)
+            t = transform(x, fctx.tbl_inv, batch, bufs[:2], other=True)
+            u = fpv(lib, mul, batch * n, 1, t, fctx.n_inv, None, None,
+                    bufs[2])
+            v = fpv(lib, mul, batch * n, n, u, fctx.coset_tbl, None, None,
+                    bufs[3])
+            w = transform(v, fctx.tbl_fwd, batch, bufs[:2], other=True)
+            hq = fpv(lib, abc, n, 1, w[0], w[0] if sq else w[1], w[-1], zh,
+                     bufs[2][0])
+            y = transform(hq[None], fctx.tbl_inv, 1, h1, other=True)
+            y = fpv(lib, mul, n, 1, y, fctx.n_inv, None, None, bufs[3][0])
+            y = fpv(lib, mul, n, n, y, coset_inv, None, None, bufs[2][0])
+            return fpv(lib, mul, n, 1, y, one, None, None, bufs[3][0])
 
-        fns = {"other": (other, len(fctx.levels)),
-               "this": (this(fctx.passes), len(fctx.passes))}
-        want = fctx.fft(a)
+        def this():
+            fpv(libs["fp_vec"], abc, n, 1, *rows, one, chk)
+            t = transform(x, fctx.tbl_inv, batch, bufs[:2],
+                          post=fctx.ninv_coset_tbl)
+            w = transform(t, fctx.tbl_fwd, batch, bufs[2:])
+            return transform(w, fctx.tbl_inv, 1, h1, PRO_ABC, zh, batch,
+                             post=fctx.ninv_coset_inv_plain)[0]
+
+        npass = len(geoms)
+        fns = {"other": (other, 1 + 3 * npass + 6),
+               "this": (this, 1 + 3 * npass)}
+        want = hpoly(fctx, *rows, zh_inv)
         for name, (fn, _) in fns.items():
             if not torch.equal(fn(), want):
-                raise AssertionError(f"K5 n={n}: {name} != fctx.fft")
-        tag = f"{F.NAME} n={n} x{batch}"
-        logdir = os.path.join(out_dir, "trace", f"ntt_{n}")
+                raise AssertionError(f"hpoly n={n}: {name} != fft_tensor."
+                                     f"hpoly")
+        tag = (f"{F.NAME} n={n} x{batch}{' (b is a)' if sq else ''}, "
+               f"{npass} passes a transform")
+        logdir = os.path.join(out_dir, "trace", f"hpoly_{n}")
         evs, dvs = in_turns(fns, ("other", "this", "this", "other"), logdir)
-        if sweep:
-            tiles = {}
-            for tile in NTT_TILES:
-                ps_all = passes(n, fctx.levels, tile)
-                tiles[f"tile {tile} ({len(ps_all)} passes)"] = (
-                    this(ps_all), len(ps_all))
-            for name, (fn, _) in tiles.items():
-                if not torch.equal(fn(), want):
-                    raise AssertionError(f"K5 n={n}: {name} != fctx.fft")
-            e, d = in_turns(tiles, list(tiles) + list(reversed(tiles)),
-                            logdir + "_tiles")
-            evs.update(e)
-            dvs.update(d)
-        summary["ntt"][tag] = {"events_ms": evs, "kernel_ms": dvs}
-        print(f"K5 {tag} forward transform ({len(fctx.levels)} levels, "
-              f"{len(fctx.passes)} passes at tile {ntt_tile(n)})"
-              ": " + ", ".join(f"{k} {evs[k]:.4f} ms events, "
-                               f"{fmt_ms(dvs[k])} kernels" for k in evs),
-              flush=True)
-        del a, bufs, want
+        summary["hpoly"][tag] = {"events_ms": evs, "kernel_ms": dvs,
+                                 "launches": {k: v[1] for k, v in
+                                              fns.items()}}
+        print(f"hpoly {tag}: " + ", ".join(
+            f"{k} ({fns[k][1]} launches) {evs[k]:.4f} ms events, "
+            f"{cs.fmt_ms(dvs[k])} kernels" for k in evs), flush=True)
+        del x, rows, bufs, chk, h1, want, coset_inv
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    m = groth16_main_a()
-    f = m.f
-    took = time.perf_counter() - t0
-    z = cs.rand_elems((m.n_cols,), f.p, dev, gen)
-    out = torch.empty((m.n_rows, 10), dtype=torch.int32, device=dev)
-    fk = f.kconsts.ctypes.data_as(ctypes.c_void_p)
-
-    def old():
-        rc = libs["spmv_other"].pcd_spmv_rows(
-            m.rowptr.data_ptr(), m.cols.data_ptr(), m.vals.data_ptr(),
-            z.data_ptr(), out.data_ptr(), m.n_rows, fk, stream)
-        if rc:
-            raise RuntimeError(f"other spmv_rows: CUDA error {rc}")
-        return out
-
-    def new():
-        rc = libs["spmv"].pcd_spmv_rows(
-            m.rowptr.data_ptr(), m.units.data_ptr(), m.cols.data_ptr(),
-            m.vals.data_ptr(), m.order.data_ptr(), z.data_ptr(),
-            out.data_ptr(), m.n_rows, m.n_warp, fk, stream)
-        if rc:
-            raise RuntimeError(f"spmv_rows: CUDA error {rc}")
-        return out
-
-    want = m.apply(z).clone()
-    fns = {"other": (old, 1), "this": (new, 1)}
-    for name, (fn, _) in fns.items():
-        if not torch.equal(fn(), want):
-            raise AssertionError(f"K6: {name} != SparseMatVec.apply")
-    evs, dvs = in_turns(fns, ("other", "this", "this", "other"),
-                        os.path.join(out_dir, "trace", "spmv"))
-    lens = torch.diff(m.rowptr).cpu().numpy()
-    what = (f"{f.name} Groth16 main A ({m.n_rows} rows, {m.nnz} entries, "
-            f"mean {lens.mean():.2f}, max {m.max_row}, {m.n_warp} warp "
-            f"rows, {m.n_units} unit entries)")
-    summary["spmv"][what] = {"events_ms": evs, "kernel_ms": dvs}
-    print(f"K6 {what}, built in {took:.1f}s: " + ", ".join(
-        f"{k} {evs[k]:.4f} ms events, {fmt_ms(dvs[k])} kernels"
-        for k in evs), flush=True)
 
 
 def main(argv):
@@ -564,7 +490,7 @@ def main(argv):
                 os.path.join(out_dir, "probe.cu")]), cub)
     if quotient:
         qbuilds = {"ntt_other": (os.path.join(other, "ntt.cu"), []),
-                   "spmv_other": (os.path.join(other, "spmv.cu"), [])}
+                   "fpv_other": (os.path.join(other, "fp_vec.cu"), [])}
         for name, (src, defs) in qbuilds.items():
             so = os.path.join(out_dir, f"{name}.so")
             procs[name] = (nvcc([*NVCC_FLAGS, *defs, "-o", so, src]), so)
@@ -596,17 +522,18 @@ def main(argv):
             summary["ptxas"][name] = regs
             for ln in regs:
                 print(f"ptxas {name}: {ln}")
-        for name in ("ntt", "spmv"):
+        for name in ("ntt", "fp_vec"):
             regs = [ln.strip() for ln in kernels.BUILD_INFO.get(
                 name, {}).get("ptxas", "").splitlines()
                 if "registers" in ln or "spill" in ln]
             summary["ptxas"][name] = regs
             for ln in regs:
                 print(f"ptxas {name} (this tree): {ln}")
-        libs["ntt_other"], libs["spmv_other"] = load_other_quotient(
-            procs["ntt_other"][1], procs["spmv_other"][1])
-        libs["ntt"], libs["spmv"] = kernels.lib("ntt"), kernels.lib("spmv")
-        quotient_ab(libs, summary, out_dir, "--sweep" in argv)
+        libs["ntt_other"], libs["fpv_other"] = load_other_quotient(
+            procs["ntt_other"][1], procs["fpv_other"][1])
+        libs["ntt"], libs["fp_vec"] = kernels.lib("ntt"), kernels.lib(
+            "fp_vec")
+        quotient_ab(libs, summary, out_dir)
     if k4:
         regs = [ln.strip() for ln in logs["runsum"].splitlines()
                 if "Compiling" in ln or "registers" in ln or "spill" in ln]

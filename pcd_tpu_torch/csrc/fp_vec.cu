@@ -1,12 +1,16 @@
 // K7: elementwise prime-field operations of the quotient pipeline, by op
 // code, one thread per output element.
 //
-// Replaces the pointwise XLA steps of the reference's device quotient:
-// the coset and n^-1 scalings of FFTTensorCtx.ifft / coset_fft /
-// coset_ifft (pcd_tpu/ops/fft_tensor.py:111-123), the pointwise
-// (a b - c) Z_H^-1 of the Groth16 prover (pcd_tpu/snark/groth16/
-// native.py:497-506) and GM17's SAP evaluations (pcd_tpu/snark/gm17/
-// native.py:324-347).  None of them has a Pallas site.
+// Replaces the pointwise XLA steps of the reference's device quotient
+// that no transform holds: z to Montgomery and the replayed-witness check
+// (a b - c) (pcd_tpu/snark/groth16/native.py:485-492), GM17's SAP
+// evaluations (pcd_tpu/snark/gm17/native.py:324-347) and the root and
+// scaling tables' build.  None of them has a Pallas site.  The scalings
+// around a transform (ifft's n^-1, the coset tables of coset_fft and
+// coset_ifft, pcd_tpu/ops/fft_tensor.py:111-123), the quotient's
+// (a b - c) Z_H^-1 and its final from-Montgomery run in K5's prologue and
+// epilogue instead (csrc/ntt.cu); FPV_MUL and FPV_ABC still compute them
+// where a caller asks for the step alone.
 //
 //   FPV_MUL  out[i] = a[i] b[i mod nb]        (a table: nb = rows; a scalar:
 //            nb = 1; canonical <-> Montgomery is a product by R^2 or by 1)

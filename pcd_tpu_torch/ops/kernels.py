@@ -109,7 +109,8 @@ ENTRIES = {
     "sched_digits": [("pcd_sched_digits", _ci,
                       [_vp, _cl, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp])],
     "ntt": [("pcd_ntt_pass", _ci,
-             [_vp, _vp, _vp, _vp, _cl, _ci, _vp, _vp, _vp])],
+             [_vp, _vp, _vp, _vp, _cl, _ci, _vp, _vp, _vp, _ci, _vp, _cl,
+              _ci, _vp, _cl])],
     "spmv": [("pcd_spmv_rows", _ci,
               [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _cl, _cl, _vp, _vp])],
     "fp_vec": [("pcd_fp_vec", _ci, [_ci, _cl, _cl, _cl, _vp, _vp, _vp, _vp,

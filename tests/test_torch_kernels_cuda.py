@@ -387,6 +387,138 @@ def test_ntt_pass_domains_match_plain(dom, cuda_device):
             assert torch.equal(src, ctx._transform(a, tbl))
 
 
+# K5's prologue x epilogue instantiations as ntt_pass takes them: name ->
+# (source rows, pre, abc, post), the tables by FFTTensorCtx attribute;
+# the prologues run on the first pass, the epilogues on the first and
+# the last
+NTT_MODES = {"plain": (None, None, False, None),
+             "pre table": (None, "coset_tbl", False, None),
+             "pre scalar": (None, "n_inv", False, None),
+             "abc 3 rows": (3, None, True, None),
+             "abc 2 rows": (2, None, True, None),
+             "post table": (None, None, False, "ninv_coset_inv_tbl"),
+             "post scalar": (None, None, False, "n_inv"),
+             "pre + post": (None, "coset_tbl", False, "ninv_coset_tbl"),
+             "abc + post plain": (3, None, True, "ninv_coset_inv_plain"),
+             "abc 2 rows + post scalar": (2, None, True, "n_inv")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dom", NTT_DOMAINS[:4], ids=[
+    f"{d[1]}-{d[2]}-x{d[3]}" for d in NTT_DOMAINS[:4]])
+def test_ntt_pass_modes_match_plain(dom, cuda_device):
+    """Every instantiation of K5 (prologue none, MUL by a table or a
+    scalar, ABC on three or two rows; epilogue none or MUL by a table of
+    Montgomery values or of plain residues, or a scalar) on the four real
+    domains at the provers' batch: on the first pass, and the epilogues
+    on the last pass too, against the plain version limb for limb, one
+    launch each."""
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx
+
+    cyc, side, n, batch, _ = dom
+    F = getattr(getattr(M, cyc)(), side).Fr
+    ctx = fft_ctx(F, n, cuda_device)
+    first, last = ctx.passes[0], ctx.passes[-1]
+    x = torch.stack([_field_rows(F, n, s) for s in range(3)]).to(
+        cuda_device)
+    key = ("ntt_pass", F.NAME)
+    for name, (rows, pre, abc, post) in NTT_MODES.items():
+        kw = {"pre": pre and getattr(ctx, pre),
+              "abc": ctx.f.mont(11, cuda_device) if abc else None,
+              "post": post and getattr(ctx, post)}
+        src = x[:rows or batch].contiguous()
+        cases = [(first, ctx.perm, kw)]
+        if pre is None and not abc:
+            cases.append((last, None, kw))
+        for ps, perm, k in cases:
+            before = launch_counts().get(key, 0)
+            got = ctx.ntt_pass(src, ctx.tbl_inv, perm, ps, **k)
+            assert launch_counts()[key] == before + 1
+            want = ctx.ntt_pass_plain(src, ctx.tbl_inv, perm, ps, **k)
+            assert torch.equal(got, want), (name, ps.M)
+
+
+@pytest.mark.cuda
+def test_ntt_pass_entry_refuses_bad_modes(cuda_device):
+    """K5's C entry returns cudaErrorInvalidValue (1) for an unknown
+    prologue or epilogue, a table of neither 1 nor n rows, a prologue at
+    M > 1, and ABC on a batch other than one or on other than two or
+    three source rows; a good call returns 0."""
+    import ctypes
+
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx
+    from pcd_tpu_torch.ops.kernels import lib
+
+    F = M.mnt_cycle().help.Fr
+    ctx = fft_ctx(F, 31_360, cuda_device)
+    n = ctx.n
+    x = torch.stack([_field_rows(F, n, s) for s in range(3)]).to(
+        cuda_device)
+    out = torch.empty_like(x)
+    kc = ctx.f.kconsts.ctypes.data_as(ctypes.c_void_p)
+    stream = torch.cuda.current_stream().cuda_stream
+    tbl, s = ctx.coset_tbl.data_ptr(), ctx.n_inv.data_ptr()
+
+    def call(ps, perm, batch, pro, pv, np_, epi, ev, ne):
+        geom = ps.geom()
+        return lib("ntt").pcd_ntt_pass(
+            x.data_ptr(), out.data_ptr(), ctx.tbl_fwd.data_ptr(),
+            perm, n, batch, geom.ctypes.data_as(ctypes.c_void_p), kc,
+            stream, pro, pv, np_, epi, ev, ne)
+
+    first, last = ctx.passes[0], ctx.passes[-1]
+    perm = ctx.perm.data_ptr()
+    assert call(first, perm, 3, 1, tbl, n, 1, tbl, n) == 0
+    torch.cuda.synchronize()
+    for bad in [(first, perm, 3, 3, tbl, n, 0, None, 0),
+                (first, perm, 3, 0, None, 0, 2, tbl, n),
+                (first, perm, 3, 1, tbl, n - 1, 0, None, 0),
+                (first, perm, 3, 0, None, 0, 1, tbl, 2),
+                (first, perm, 3, 1, None, n, 0, None, 0),
+                (last, None, 3, 1, tbl, n, 0, None, 0),
+                (last, None, 1, 2, s, 3, 0, None, 0),
+                (first, perm, 3, 2, s, 3, 0, None, 0),
+                (first, perm, 1, 2, s, 4, 0, None, 0)]:
+        assert call(*bad) == 1, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dom", NTT_DOMAINS[:4],
+                         ids=[f"{d[1]}-{d[2]}" for d in NTT_DOMAINS[:4]])
+def test_hpoly_fused_matches_unfused(dom, cuda_device):
+    """The device hpoly (three transforms, the pointwise steps in K5's
+    prologue and epilogue) against the unfused composition on the card
+    (ifft, coset_fft, (a b - c) Z_H^-1, coset_ifft, from_mont, each
+    scaling a K7 launch) on random evaluations of the four real domains,
+    the GM17 domains in the squaring form (b is a), limb for limb; K7
+    never launched by the fused quotient."""
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, hpoly
+    from pcd_tpu_torch.poly.domain import EvaluationDomain
+
+    cyc, side, n, batch, _ = dom
+    F = getattr(getattr(M, cyc)(), side).Fr
+    ctx = fft_ctx(F, n, cuda_device)
+    f = ctx.f
+    d = EvaluationDomain(F, n)
+    zh_inv = pow(d.vanishing_poly_at(d.coset_shift), -1, F.MODULUS)
+    a, b, c = (_field_rows(F, n, s).to(cuda_device) for s in (21, 22, 23))
+    sq = batch == 2
+    if sq:
+        b = a
+    kf = ("fp_vec", F.NAME)
+    before = launch_counts().get(kf, 0)
+    got = hpoly(ctx, a, b, c, zh_inv)
+    assert launch_counts().get(kf, 0) == before
+    x = torch.stack((a, c) if sq else (a, b, c))
+    ev = f.vmul(ctx._transform(x, ctx.tbl_inv), ctx.n_inv)
+    ev = ctx._transform(f.vmul(ev, ctx.coset_tbl), ctx.tbl_fwd)
+    h = f.abc(ev[0], ev[0] if sq else ev[1], ev[-1],
+              f.mont(zh_inv, cuda_device))
+    h = f.vmul(f.vmul(ctx._transform(h, ctx.tbl_inv), ctx.n_inv),
+               ctx._pow_table(d.coset_shift_inv))
+    assert torch.equal(got, f.from_mont(h))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fld", QFIELDS, ids=QIDS)
 def test_spmv_rows_match_plain(fld, cuda_device):
