@@ -9,8 +9,8 @@ plain versions.  Run from the root of a checkout with one CUDA card:
 Phases, one output line each, then a `kernels` JSON line and the final
 status line:
   1  card and build: nvidia-smi's name and power limit; the C++ host tier
-     (g++) and the CUDA kernels (one nvcc per source, sched_digits and the
-     quotient's K5-K7 too) built in parallel from the checkout, with
+     (g++) and the CUDA kernels (one nvcc per source, the device
+     scheduler's P1 and the quotient's K5-K7 too) built in parallel from the checkout, with
      ptxas' register and spill report;
   2  every kernel against its plain torch version on the card, for the
      four field forms of the main path (MNT4/MNT6 G1 over Fq, MNT4 G2 over
@@ -36,8 +36,9 @@ status line:
      replayed through K4 and through finish_steps in turns; then six more
      warm steps, the scheduler (msm_dispatch.SCHEDULER) in three adjacent
      host/device pairs, alternating which runs first, each step with K1
-     and K4 exactly once per commitment MSM (sched_digits twice a prove
-     under "device"), the last proof of each verified; per scheduler the
+     and K4 exactly once per commitment MSM (each P1 kernel twice a prove
+     under "device", never under "host"), the last proof of each
+     verified; per scheduler the
      medians and ranges of the step, stream_dispatch, stream_dispatch_h,
      the MSM collect (groth16/msm) and the schedule spans, and the
      verdict: "device" when its step is shorter in at least nine tenths
@@ -77,13 +78,17 @@ status line:
   9  the device scheduler (ops/msm_stream_dev.py) at c = 12, L = 8192:
      a 2^18-point MNT4 G1 MSM and a 2^16-point MNT4 G2 MSM, dense and
      low-entropy scalars (digits in two windows only), each equal to the
-     C++ Pippenger with K1, K4 and sched_digits launched once; the G1
-     schedules equal the host placement law (the numpy schedule at the
-     device's T) and the low-entropy ones leave the empty windows out;
-     sched_digits exactly against its plain version on the dense
-     scalars; the schedule's CUDA-event ms (upload to placement, the
-     histogram fetch included) against the C++ schedule's wall ms, in
-     turns, with the digits, sort and placement times beside them;
+     C++ Pippenger with K1, K4 and each P1 kernel launched once, and P1
+     (order, signs, counts) exactly equal to the plain P1 (the digits, a
+     stable torch.sort and a searchsorted); the G1 schedules equal the
+     host placement law (the numpy schedule at the device's T) and the
+     low-entropy ones leave the empty windows out; on the dense G1
+     scalars each P1 kernel exactly against its plain version on the
+     same inputs, with CUDA-event ms, bound and library call, and P1's
+     CUDA-event ms against its bound and the torch sort and searchsorted;
+     the schedule's CUDA-event ms (upload to placement, the histogram
+     fetch included) against the C++ schedule's wall ms, in turns, with
+     the upload, P1 and placement times beside them;
  10  the device quotient, after phase 4: K5 (every pass of a forward
      transform, its passes and tile printed, at most 3 launches a
      transform in every direction; every prologue x epilogue
@@ -109,9 +114,9 @@ status line:
 Phase 1 always runs, phase 9 runs after phase 3, before the chains, and
 phase 10 between phases 4 and 6.  K2's and K3's records come from phase
 2; their `launches` sum their launches over the chains run (null when
-none ran).  sched_digits' record comes from phase 9; its `launches` are
-those of phase 4's device-scheduled warm steps (phase 9's own when phase
-4 did not run).  K5-K7's records come from phase 10; their `launches`
+none ran).  The P1 kernels' records come from phase 9; their `launches`
+are those of phase 4's device-scheduled warm steps (phase 9's own when
+phase 4 did not run).  K5-K7's records come from phase 10; their `launches`
 are those of a device-quotient warm step of their chain (mnt4_groth16's
 from phase 4, mnt4_gm17's from phase 6; null when it did not run).
 Phases 6 and 7 run msm_dispatch.SCHEDULER's and QUOTIENT's defaults.
@@ -146,6 +151,9 @@ MULS_MADD, MULS_ADD = 17, 18
 # K1 launches per prove of one SNARK: Groth16's a, b_g1, l and h in G1
 # and b_g2 in G2; GM17's a, c and h in G1 and b in G2
 K1_PER_PROVE = {"Groth16": {"g1": 4, "g2": 1}, "GM17": {"g1": 3, "g2": 1}}
+# schedules (P1s under the device scheduler) per prove of either SNARK:
+# one for the z-driven MSMs, which share it, and one for h
+P1_PER_PROVE = 2
 # the chains of phases 4 and 6 (pcd_tpu_torch.configs factories)
 CHAINS = {4: ("mnt4_groth16",),
           6: ("mnt4_gm17", "mnt4_mix_groth16_gm17", "mnt4_mix_gm17_groth16")}
@@ -166,8 +174,12 @@ REPLACES = {
                           "pcd_tpu/ops/ec32.py:1003",
     ("complete_add", 1): "pcd_tpu/ops/ec32.py:436",
     ("madd", 1): "pcd_tpu/ops/ec32.py:620",
-    # no Pallas site: the XLA digit glue of DevSchedMSM._p1 (lines 80-110)
-    ("sched_digits", 0): "pcd_tpu/ops/msm_stream_dev.py:80",
+    # no Pallas site: the XLA program of DevSchedMSM._p1 (lines 67-118):
+    # its digit glue, argsort and searchsorted
+    ("p1_digits", 0): "pcd_tpu/ops/msm_stream_dev.py:80",
+    ("p1_hist", 0): "pcd_tpu/ops/msm_stream_dev.py:116",
+    ("p1_scan", 0): "pcd_tpu/ops/msm_stream_dev.py:116",
+    ("p1_scatter", 0): "pcd_tpu/ops/msm_stream_dev.py:112",
     # no Pallas site: the device quotient's XLA programs
     ("ntt_pass", 0): "pcd_tpu/ops/fft_tensor.py:74",
     ("spmv_rows", 0): "pcd_tpu/ops/matvec_tensor.py:77",
@@ -178,7 +190,10 @@ SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "complete_add": "pcd_tpu_torch/csrc/complete_add.cu",
            "madd": "pcd_tpu_torch/csrc/madd.cu",
            "bucket_finish": "pcd_tpu_torch/csrc/bucket_finish.cu",
-           "sched_digits": "pcd_tpu_torch/csrc/sched_digits.cu",
+           "p1_digits": "pcd_tpu_torch/csrc/sched_digits.cu",
+           "p1_hist": "pcd_tpu_torch/csrc/sched_digits.cu",
+           "p1_scan": "pcd_tpu_torch/csrc/sched_digits.cu",
+           "p1_scatter": "pcd_tpu_torch/csrc/sched_digits.cu",
            "ntt_pass": "pcd_tpu_torch/csrc/ntt.cu",
            "spmv_rows": "pcd_tpu_torch/csrc/spmv.cu",
            "fp_vec": "pcd_tpu_torch/csrc/fp_vec.cu"}
@@ -227,9 +242,17 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def device_ms(fn, reps, dev, warm=True):
+# about 10 ms of a spinning kernel on the card: device_ms(queued=True)
+# enqueues the timed calls behind it
+QUEUE_CYCLES = 20_000_000
+
+
+def device_ms(fn, reps, dev, warm=True, queued=False):
     """Mean time of fn: CUDA events on the card (host clock elsewhere,
-    for rehearsals)."""
+    for rehearsals).  queued: the calls are enqueued behind a spinning
+    kernel, so the events time the card's work back to back and not the
+    host's pace of launching; raises if the card ran dry before the last
+    call was enqueued."""
     import torch
 
     if warm:
@@ -242,10 +265,15 @@ def device_ms(fn, reps, dev, warm=True):
         return (time.perf_counter() - t0) * 1e3 / reps
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
     b.record()
+    if queued and a.query():   # the spin ended before the last call
+        raise RuntimeError("device_ms: the card ran dry while the calls "
+                           "were enqueued; raise QUEUE_CYCLES")
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
 
@@ -614,11 +642,114 @@ def low_entropy(n, c=12):
     return [(i % 1009) | ((i % 3 + 1) << (5 * c)) for i in range(n)]
 
 
+def p1_exact(dm, W, what):
+    """P1 on W against its plain version (order, signs, counts), element
+    for element; returns P1's result."""
+    import torch
+
+    got = dm.p1(W)
+    for nm, a, b in zip(("order", "signs", "counts"), got, dm.p1_plain(W)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"P1 {what}: {nm} != the plain P1")
+    return got
+
+
+def p1_records(dm, W, dev):
+    """Each P1 kernel on the dense scalars W: exact against its plain
+    version on the same inputs, CUDA-event ms, plain ms (one call), bound
+    by bytes, and a library call where one computes the same function
+    (p1_hist: index_add_ of ones at the (window, tile, magnitude) keys
+    into a zeroed histogram; p1_scan: torch.cumsum over the tiles, the
+    inclusive scan whose difference from hist is starts and whose last
+    row is counts; p1_scatter: a stable torch.sort of the magnitudes).
+    Returns (the records, P1's CUDA-event ms (queued behind a spinning
+    kernel, and as the host launches it), the plain P1's ms, the torch
+    sort and searchsorted's ms, P1's bound in ms).  The kernels' and the
+    library calls' ms are queued alike: a kernel of a few tens of
+    microseconds is shorter than its wrapper's host work."""
+    import torch
+
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_TILE
+
+    s = dm.sctx
+    n, nw = W.shape
+    K, nt = s.B + 2, -(-n // P1_TILE)
+    nwin = s.nwin
+    mags, signs = dm.digits(W)
+    hist = dm.tile_hist(mags)
+    hist0 = hist.clone()
+    starts, counts = dm.tile_scan(hist)
+    order = dm.scatter(mags, starts, counts)
+    pm, ps = dm.digits_plain(W)
+    checks = {"p1_digits": (mags.int(), pm), "p1_hist": (
+        hist0, dm.hist_plain(mags))}
+    ws, wc = dm.scan_plain(hist0)
+    checks["p1_scan"] = (torch.cat([starts.view(nwin, -1), counts], 1),
+                         torch.cat([ws.view(nwin, -1), wc], 1))
+    checks["p1_scatter"] = (order, dm.scatter_plain(mags, starts, counts))
+    if not torch.equal(signs, ps):
+        raise AssertionError("p1_digits: signs != the plain version")
+    for k, (a, b) in checks.items():
+        if not torch.equal(a, b):
+            raise AssertionError(f"{k} != its plain version")
+    scratch = hist0.clone()    # p1_scan works in place: its time on one
+    # buffer, L2-warm as in P1 (the values it leaves are not checked)
+    key = ((torch.arange(nwin, device=dev)[:, None] * nt
+            + torch.arange(n, device=dev) // P1_TILE) * K
+           + mags.to(torch.int64)).view(-1)
+    ones = torch.ones_like(key, dtype=torch.int32)
+    lib_hist = torch.zeros(nwin * nt * K, dtype=torch.int32,
+                           device=dev).index_add_(0, key, ones)
+    if not torch.equal(lib_hist.view(nwin, nt, K), hist0):
+        raise AssertionError("p1_hist's library call != p1_hist")
+    incl = torch.cumsum(hist0, 1, dtype=torch.int32)
+    if not (torch.equal(incl - hist0, ws)
+            and torch.equal(incl[:, -1], counts)):
+        raise AssertionError("p1_scan's library call != p1_scan")
+    m32 = pm
+    timing = {
+        "p1_digits": (lambda: dm.digits(W), lambda: dm.digits_plain(W),
+                      None, W.numel() * 4 + nwin * n * 3),
+        "p1_hist": (lambda: dm.tile_hist(mags), lambda: dm.hist_plain(mags),
+                    lambda: torch.zeros(nwin * nt * K, dtype=torch.int32,
+                                        device=dev).index_add_(0, key, ones),
+                    nwin * n * 2 + nwin * nt * K * 4),
+        "p1_scan": (lambda: dm.tile_scan(scratch),
+                    lambda: dm.scan_plain(hist0),
+                    lambda: torch.cumsum(hist0, 1, dtype=torch.int32),
+                    nwin * nt * K * 8 + nwin * K * 4),
+        "p1_scatter": (lambda: dm.scatter(mags, starts, counts),
+                       lambda: dm.scatter_plain(mags, starts, counts),
+                       lambda: torch.sort(mags, dim=1, stable=True),
+                       nwin * n * 6 + nwin * nt * K * 4 + nwin * K * 4)}
+    recs = []
+    for k, (fn, plain, lib_fn, nbytes) in timing.items():
+        ms = device_ms(fn, 10, dev, queued=True)
+        _, plain_ms = timed_plain(plain, dev)
+        rec = record(k, dm.form, 0, 0, ms, plain_ms, nbytes, 0)
+        rec["library_ms"] = None if lib_fn is None else device_ms(
+            lib_fn, 10, dev, queued=True)
+        recs.append(rec)
+    p1_ms = (device_ms(lambda: dm.p1(W), 10, dev, queued=True),
+             device_ms(lambda: dm.p1(W), 10, dev))
+    _, plain_p1 = timed_plain(lambda: dm.p1_plain(W), dev)
+
+    def sort_hist():
+        sk, _ = torch.sort(m32, dim=1, stable=True)
+        return torch.searchsorted(sk, torch.arange(
+            K + 1, dtype=torch.int32, device=dev).expand(nwin, -1)
+            .contiguous())
+    lib_ms = device_ms(sort_hist, 10, dev, queued=True)
+    bound = (W.numel() * 4 + nwin * n * 5 + nwin * K * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    return recs, p1_ms, plain_p1, lib_ms, bound
+
+
 def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     """The device scheduler at the chains' c = 12, L = 8192 (see the module
-    docstring, phase 9).  Appends sched_digits' `kernels` record (its
-    launches those of this phase; main() puts phase 4's there when it
-    ran)."""
+    docstring, phase 9).  Appends the P1 kernels' `kernels` records
+    (their launches those of this phase; main() puts phase 4's there when
+    it ran)."""
     import statistics
 
     import numpy as np
@@ -628,7 +759,7 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     from pcd_tpu_torch.curves import models as M
     from pcd_tpu_torch.ops import ec
     from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
-    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS, DevSchedMSM
 
     dev = torch.device(dev)
     # on the CPU (a rehearsal) the wrappers count plain-version calls
@@ -636,7 +767,7 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     cfg = M.mnt_cycle().main
     r = cfg.Fr.MODULUS
     rng = np.random.default_rng(9)
-    launches = 0
+    launches = dict.fromkeys(P1_KERNELS, 0)
     for grp, log in (("g1", log_n), ("g2", log_n2)):
         curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
         n = 1 << log
@@ -654,10 +785,11 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
             ec.reset_launch_counts()           # this MSM starts
             got = dm.msm_limbs(table, limbs)
             counts = counter()                 # this MSM ended
-            launches += counts.get(("sched_digits", dm.form), 0)
+            for k in P1_KERNELS:
+                launches[k] += counts.get((k, dm.form), 0)
             expect = {("madd_accumulate", curve.name): 1,
-                      ("bucket_finish", curve.name): 1,
-                      ("sched_digits", dm.form): 1}
+                      ("bucket_finish", curve.name): 1}
+            expect.update({(k, dm.form): 1 for k in P1_KERNELS})
             if counts != expect:
                 raise AssertionError(f"devsched {curve.name} {kind}: "
                                      f"launches {counts}, expected {expect}")
@@ -665,6 +797,7 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                 raise AssertionError(f"devsched 2^{log} {curve.name} {kind} "
                                      f"MSM != C++ Pippenger")
             W = dm.upload(limbs, dev)
+            p1_exact(dm, W, f"2^{log} {curve.name} {kind}")
             sched = dm.schedule(W)
             if kind == "low-entropy" and list(sched.act) != [0, 5]:
                 raise AssertionError(f"low-entropy scalars: active windows "
@@ -690,27 +823,16 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                 msg = (f"; schedule == host placement law at T = {sched.T} "
                        f"(numpy oracle {time.perf_counter() - t0:.1f}s)")
             say(phase, f"2^{log} {curve.name} {kind}: device-scheduled MSM "
-                       f"== C++ Pippenger, K1, K4 and sched_digits once; "
+                       f"== C++ Pippenger, K1, K4 and each P1 kernel once; "
+                       f"P1 == plain P1 (order, signs, counts); "
                        f"{len(sched.act)} of {sctx.nwin} windows active, "
                        f"T = {sched.T}, maxrun {sched.maxrun}" + msg)
         if grp != "g1":
             continue
         limbs = native.ints_to_limbs(dense)
         W = dm.upload(limbs, dev)
-        got = dm.digits(W)
-        sync(dev)
-        t0 = time.perf_counter()
-        want = dm.digits_plain(W)
-        sync(dev)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = max(int((a.long() - b.long()).abs().max())
-                  for a, b in zip(got, want))
-        if err:
-            raise AssertionError("sched_digits != its plain version")
-        ms = device_ms(lambda: dm.digits(W), 10, dev)
-        nbytes = W.numel() * 4 + sctx.nwin * n * 5
-        rec = record("sched_digits", dm.form, 0, err, ms, plain_ms, nbytes, 0)
-        results.append(rec)
+        recs, p1_ms, plain_ms, lib_ms, bound = p1_records(dm, W, dev)
+        results.extend(recs)
         # the schedule: C++ (host wall) against the device's (CUDA events
         # from the upload to the placement, histogram fetch included), in
         # turns, and the device steps alone
@@ -739,16 +861,20 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
         act, T, _ = dm._pick_shapes(counts.cpu().numpy())
         parts = {
             "upload": device_ms(lambda: dm.upload(limbs, dev), 3, dev),
-            "digits": ms,
-            "sort+histogram": device_ms(
-                lambda: dm.p1(W), 5, dev) - ms,
+            "p1": p1_ms[1],
             "placement": device_ms(
                 lambda: dm.place(order, signs_, counts, act, T), 5, dev)}
         med = {k: statistics.median(v) for k, v in t.items()}
-        say(phase, f"sched_digits[{dm.form}] on 2^{log} scalars: exact "
-                   f"against plain; {ms:.4f} ms, bound "
-                   f"{rec['bound_ms']:.4f} ms (bytes), plain "
-                   f"{plain_ms:.1f} ms")
+        say(phase, f"P1[{dm.form}] on 2^{log} scalars: each kernel exact "
+                   f"against its plain version; P1 {p1_ms[0]:.4f} ms CUDA "
+                   f"events queued ({p1_ms[1]:.4f} ms as launched), bound "
+                   f"{bound:.4f} ms (bytes, {100 * bound / p1_ms[0]:.1f}% "
+                   f"of it), plain P1 "
+                   f"{plain_ms:.1f} ms, torch sort + searchsorted "
+                   f"{lib_ms:.4f} ms; kernels (ms): " + json.dumps(
+                       {rec["name"]: [round(rec["ms"], 4),
+                                      round(rec["bound_ms"], 4)]
+                        for rec in recs}))
         say(phase, f"2^{log} schedule, medians of 3 in turns: device "
                    f"{med['dev']:.3f} ms CUDA events ({med['dev_wall']:.3f} "
                    f"ms wall) vs C++ {med['cpp']:.3f} ms wall; all "
@@ -757,8 +883,9 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                    + "; device parts (ms): " + json.dumps(
                        {k: round(v, 4) for k, v in parts.items()}))
     for rec in results:
-        if rec["name"].startswith("sched_digits["):
-            rec["launches"] = launches
+        kernel = rec["name"].split("[")[0]
+        if kernel in launches:
+            rec["launches"] = launches[kernel]
 
 
 class LaunchProbe:
@@ -900,7 +1027,20 @@ class LaunchProbe:
 
 def check_once_per_msm(counts, forms, what):
     """K1 and K4 of every form exactly once per commitment MSM of one
-    prove of each side, K2 never."""
+    prove of each side, K2 never; each P1 kernel once per schedule
+    (P1_PER_PROVE a prove of each side) under the device scheduler, never
+    under the host one."""
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
+    from pcd_tpu_torch.snark import msm_dispatch
+
+    want = (P1_PER_PROVE * len(forms) // 2
+            if msm_dispatch.SCHEDULER == "device" else 0)
+    for k in P1_KERNELS:
+        got = sum(v for (kk, _), v in counts.items() if kk == k)
+        if got != want:
+            raise AssertionError(f"{what}: {k} launched {got} times under "
+                                 f"the {msm_dispatch.SCHEDULER!r} scheduler,"
+                                 f" expected {want}")
     for f, grp, kind in forms:
         want = K1_PER_PROVE[kind][grp]
         for k in ("madd_accumulate", "bucket_finish"):
@@ -945,18 +1085,19 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
                phase, turns):
     """Warm steps with msm_dispatch.<knob> ("SCHEDULER" or "QUOTIENT") set
     in `turns`: each its launches counted alone (K1 and K4 once per
-    commitment MSM; sched_digits twice a prove under the device
+    commitment MSM; each P1 kernel twice a prove under the device
     scheduler and never under the host one; K5, K6 and K7 under the
     device quotient only, K5 and K7 as check_quotient_launches says) and
     its spans; the last proof of each setting
     verified.  The verdict: "device" when its step is shorter in at
     least nine tenths of the adjacent pairs and its median shorter than
     the host's by more than the host steps' interquartile distance.
-    Returns ({setting: {metric: [median, min, max] s}}, sched_digits
-    launches in all, the launch counts of the first "device" step)."""
+    Returns ({setting: {metric: [median, min, max] s}}, {P1 kernel: its
+    launches in all}, the launch counts of the first "device" step)."""
     import statistics
 
     from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
     from pcd_tpu_torch.utils import profiling
 
@@ -964,7 +1105,7 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     one, two = F.from_int(1), F.from_int(2)
     default = getattr(msm_dispatch, knob)
     runs, last = {}, {}
-    digits_all, dev_counts = 0, None
+    p1_all, dev_counts = dict.fromkeys(P1_KERNELS, 0), None
     profiling.enable()
     try:
         for val in turns:
@@ -978,12 +1119,8 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
             got = counter()                    # this warm step ended
             what = f"warm step, {knob} {val!r}"
             check_once_per_msm(got, forms, what)
-            digits = sum(v for (k, _), v in got.items()
-                         if k == "sched_digits")
-            sched_dev = msm_dispatch.SCHEDULER == "device"
-            if digits != (4 if sched_dev else 0):
-                raise AssertionError(f"{what}: {digits} sched_digits "
-                                     f"launches")
+            for k in p1_all:
+                p1_all[k] += sum(v for (kk, _), v in got.items() if kk == k)
             quot = {k: sum(v for (kk, _), v in got.items() if kk == k)
                     for k in QUOTIENT_KERNELS}
             if msm_dispatch.QUOTIENT == "device":
@@ -996,7 +1133,6 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
             elif any(quot.values()):
                 raise AssertionError(f"{what}: quotient kernels launched "
                                      f"under the host quotient: {quot}")
-            digits_all += digits
             tot = profiling.totals()
 
             def total(leaf, tot=tot):
@@ -1047,7 +1183,7 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     if verdict is not None and verdict != default:
         say(phase, f"note: the verdict {verdict!r} is not "
                    f"msm_dispatch.{knob}'s default {default!r}")
-    return out, digits_all, dev_counts
+    return out, p1_all, dev_counts
 
 
 def card_busy(trace_path, wall_s):
@@ -1159,6 +1295,8 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     "trace": traced_steps' result or None, "chain": (pcd, pk)}."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
+    from pcd_tpu_torch.snark import msm_dispatch
     from pcd_tpu_torch.utils import profiling
     from pcd_tpu_torch.utils.rng import ChaChaRng
 
@@ -1248,6 +1386,9 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
              for grp, c in (("g1", cfg.g1), ("g2", cfg.g2))]
     missing = [f"{k}[{f}]" for k in ("madd_accumulate", "bucket_finish")
                for f, _, _ in forms if counts.get((k, f), 0) <= 0]
+    if msm_dispatch.SCHEDULER == "device":       # P1 on the main path
+        missing += [k for k in P1_KERNELS
+                    if not any(kk == k for kk, _ in counts)]
     if missing:
         raise AssertionError("kernels not launched on the main path: "
                              + ", ".join(missing))
@@ -1811,9 +1952,10 @@ class KZGProbe:
 
 def marlin_stage(what, calls, before, after, form, stream_min, most):
     """Hold one stage's launches to its KZG MSMs: K1 and K4 of `form` once
-    per stream MSM (and sched_digits under the device scheduler), each of
-    at least stream_min scalars, the host MSMs all below it, no other
+    per stream MSM (and each P1 kernel under the device scheduler), each
+    of at least stream_min scalars, the host MSMs all below it, no other
     launch.  Returns the number of stream MSMs."""
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
 
     streamed = [c for c in calls if c[0] == "stream"]
@@ -1827,10 +1969,11 @@ def marlin_stage(what, calls, before, after, form, stream_min, most):
                              f"most {most} expected")
     delta = {k: v - before.get(k, 0) for k, v in after.items()
              if v != before.get(k, 0)}
-    digits = sum(delta.pop(k) for k in list(delta) if k[0] == "sched_digits")
-    if digits != (len(streamed) if msm_dispatch.SCHEDULER == "device"
-                  else 0):
-        raise AssertionError(f"{what}: {digits} sched_digits launches for "
+    p1 = {k: sum(delta.pop(kk) for kk in list(delta) if kk[0] == k)
+          for k in P1_KERNELS}
+    each = len(streamed) if msm_dispatch.SCHEDULER == "device" else 0
+    if p1 != dict.fromkeys(P1_KERNELS, each):
+        raise AssertionError(f"{what}: P1 launches {p1} for "
                              f"{len(streamed)} stream MSMs under the "
                              f"{msm_dispatch.SCHEDULER!r} scheduler")
     want = {(k, form): len(streamed) for k in ("madd_accumulate",
@@ -2087,11 +2230,12 @@ def main(argv):
             counts, probe, took = phase_chain(name, ph, turns=ph == 4)
             chain_counts.append(counts)
             quot_counts[name] = took["quot_counts"]
-            if took["sched"] is not None:   # sched_digits on the path
+            if took["sched"] is not None:   # P1 on the path
                 took4 = took
                 for rec in results:
-                    if rec["name"].startswith("sched_digits["):
-                        rec["launches"] = took["sched"][1]
+                    kernel = rec["name"].split("[")[0]
+                    if kernel in took["sched"][1]:
+                        rec["launches"] = took["sched"][1][kernel]
             phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
             say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
                     f"first-launch kernel checks")

@@ -5,6 +5,8 @@ checkout:
     python3 kernel_ab.py --other DIR [--sweep] [--k4]
     python3 kernel_ab.py --k4
     python3 kernel_ab.py --quotient --other DIR
+    python3 kernel_ab.py --sched --other DIR
+    python3 kernel_ab.py --trace --other ROOT
 
 --other DIR: K1 (madd_accumulate) of this checkout against K1 of another
 copy of pcd_tpu_torch/csrc, and the integer multiply-adds one field
@@ -52,6 +54,30 @@ other, this, this, other: by CUDA events around five calls, and by the
 kernels' busy time in a torch.profiler trace of six calls, the last
 five calls' worth of kernels recorded (host gaps between launches left
 out).
+
+--sched --other DIR: the device scheduler's P1 of this checkout (the
+four kernels of csrc/sched_digits.cu through DevSchedMSM.p1) against
+the one of another copy of pcd_tpu_torch/csrc (DIR, one whose
+sched_digits.cu has the one-launch digits entry pcd_sched_digits, which
+the P1 of that tree follows with a stable torch.sort and a searchsorted
+of the sorted keys) on chip_smoke.py phase 9's 2^18 298-bit scalars at c =
+12, dense and low-entropy.  Both give the same order, signs and counts;
+CUDA events around five calls enqueued behind a spinning kernel (the
+card's time back to back) and around five calls as the host launches
+them, in the order other, this, this, other, three times.
+
+--trace --other ROOT: one warm step of the real mnt4_groth16 chain under
+msm_dispatch.SCHEDULER = "device" inside utils/profiling.device_trace,
+for another checkout (ROOT, its root: e.g. the parent commit, unpacked
+with `git archive <commit> | tar -x -C build/parent`) and for this one,
+in that order, each in a process of its own that imports that tree's
+pcd_tpu_torch: setup, the base case and one warm step, then the traced
+warm step, which must verify.  For each: the step, stream_dispatch_h,
+and for every histogram fetch of a schedule (a device-to-host copy of
+nwin x (B + 2) int32) the host's wait from the copy's runtime call to
+its start on the card, its stream, and the kernels that ran in that
+wait on its stream and on the others (ms of overlap by kernel name).
+The traces are kept, gzipped, under chiprun_out/device_trace/.
 
 Prints one line per measurement and a JSON summary as the last line.
 """
@@ -443,15 +469,209 @@ def quotient_ab(libs, summary, out_dir):
         torch.cuda.empty_cache()
 
 
+def sched_ab(other_so, summary):
+    """P1 of this tree against the other's (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib = ctypes.CDLL(other_so)
+    lib.pcd_sched_digits.restype = ci
+    lib.pcd_sched_digits.argtypes = [vp, cl, ci, ci, ci, ci, ci, vp, vp, vp]
+    dev = torch.device("cuda")
+    cfg = M.mnt_cycle().main
+    s = StreamMSMCtx(cfg.g1, cfg.Fr.BITS)
+    dm = DevSchedMSM(s)
+    n = 1 << 18
+    rng = np.random.default_rng(9)
+    r = cfg.Fr.MODULUS
+    dense = [int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)]
+    qs = torch.arange(s.B + 3, dtype=torch.int32, device=dev).expand(
+        s.nwin, -1).contiguous()
+    summary["p1"] = {}
+    for kind, sc in (("dense", dense), ("low-entropy", cs.low_entropy(n))):
+        W = dm.upload(native.ints_to_limbs(sc), dev)
+
+        def other(W=W):
+            mags = torch.empty((s.nwin, n), dtype=torch.int32, device=dev)
+            signs = torch.empty((s.nwin, n), dtype=torch.int8, device=dev)
+            rc = lib.pcd_sched_digits(
+                W.data_ptr(), n, W.shape[1], s.c, s.base_windows,
+                int(s.carry_win), s.B, mags.data_ptr(), signs.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"sched_digits: CUDA error {rc}")
+            skeys, order = torch.sort(mags, dim=1, stable=True)
+            bounds = torch.searchsorted(skeys, qs)
+            return order, signs, (bounds[:, 1:] - bounds[:, :-1]).to(
+                torch.int32)
+
+        def this(W=W):
+            return dm.p1(W)
+
+        for a, b in zip(other(), this()):
+            if not torch.equal(a.to(b.dtype), b):
+                raise AssertionError(f"P1 {kind}: this tree != the other")
+        times = {}
+        for name in ("other", "this", "this", "other") * 3:
+            fn = other if name == "other" else this
+            times.setdefault(name, []).append(cs.device_ms(
+                fn, 5, dev, queued=True))
+            times.setdefault(name + " as launched", []).append(ms(fn))
+        res = {k: sum(v) / len(v) for k, v in times.items()}
+        summary["p1"][kind] = {"mean_ms": res, "all_ms": times}
+        print(f"P1 2^18 {kind}, c = 12: other {res['other']:.4f} ms, this "
+              f"{res['this']:.4f} ms (CUDA events, queued behind a spinning"
+              f" kernel; as launched {res['other as launched']:.4f} / "
+              f"{res['this as launched']:.4f} ms; 6 turns each: "
+              + json.dumps({k: [round(x, 4) for x in v]
+                            for k, v in times.items()}) + ")", flush=True)
+
+
+def fetch_waits(trace_path, nbytes):
+    """Each device-to-host copy of `nbytes` in a torch.profiler trace (a
+    schedule's histogram fetch), in time order: the host's wait from the
+    copy's runtime call to its start on the card, its stream, and the
+    kernels that ran in that wait on the same stream and on the others
+    (ms of overlap by kernel name)."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    calls, copies, kern = {}, [], []
+    for e in events:
+        a, cat = e.get("args") or {}, e.get("cat", "")
+        if cat == "cuda_runtime" and "correlation" in a:
+            calls[a["correlation"]] = e
+        elif cat == "gpu_memcpy" and a.get("bytes") == nbytes:
+            copies.append(e)
+        elif cat == "kernel" and "dur" in e:
+            kern.append(e)
+    out = []
+    for cp in sorted(copies, key=lambda e: float(e["ts"])):
+        call = calls.get(cp["args"].get("correlation"))
+        if call is None:
+            continue
+        t0, t1 = float(call["ts"]), float(cp["ts"])
+        same, other = {}, {}
+        for k in kern:
+            a, b = float(k["ts"]), float(k["ts"]) + float(k["dur"])
+            if b <= t0 or a >= t1:
+                continue
+            d = same if k["args"].get("stream") == cp["args"].get(
+                "stream") else other
+            nm = k.get("name", "?")[:40]
+            d[nm] = round(d.get(nm, 0.0) + (min(b, t1) - max(a, t0)) / 1e3,
+                          3)
+        out.append({"wait_ms": round((t1 - t0) / 1e3, 3),
+                    "stream": cp["args"].get("stream"),
+                    "same_stream_ms": same, "other_streams_ms": other})
+    return out
+
+
+def trace_step(root, logdir):
+    """--trace's traced warm step of the checkout at `root`, in this
+    process (see the module docstring); prints its record as the last
+    line."""
+    sys.path[:] = [root] + sys.path[1:]      # that tree's package only
+    import gzip
+    import shutil
+
+    import torch
+
+    import pcd_tpu_torch
+    from pcd_tpu_torch import configs
+    from pcd_tpu_torch.ops.msm_stream import stream_ctx
+    from pcd_tpu_torch.pcd.api import FpPredicate
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.utils import profiling
+    from pcd_tpu_torch.utils.profiling import device_trace
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    class Counter(FpPredicate):              # chip_smoke.counter_predicate
+        PRIOR_MSG_LEN = 1
+
+        def generate_constraints(self, cs, msg, wit, priors, base):
+            (priors[0] + wit).enforce_equal(msg)
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    msm_dispatch.SCHEDULER = "device"
+    pcd = configs.mnt4_groth16()
+    F = pcd.ic.main_field
+    pred = Counter(F)
+    rng = ChaChaRng(b"chip smoke mnt4_groth16")
+    pk, vk = pcd.circuit_specific_setup(pred, rng)
+    one, two = F.from_int(1), F.from_int(2)
+    proof_1 = pcd.prove(pk, pred, one, one, [], [], rng)
+    pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
+    cfg = pcd.ic.cycle.main
+    sctx = stream_ctx(cfg.g1, cfg.Fr.BITS, msm_dispatch.WINDOW_BITS,
+                      msm_dispatch.LANES)
+    profiling.reset()
+    profiling.enable()
+    sync()
+    with device_trace(logdir):
+        t0 = time.perf_counter()
+        proof_2 = pcd.prove(pk, pred, two, one, [one], [proof_1], rng)
+        sync()
+        wall = time.perf_counter() - t0
+    profiling.enable(False)
+    if not pcd.verify(vk, pred, two, proof_2):
+        raise AssertionError("the traced warm step does not verify")
+    path = os.path.join(logdir, "trace.json")
+    rec = {"package": os.path.dirname(pcd_tpu_torch.__file__),
+           "step_s": wall, "stream_dispatch_h_s": [
+               v[0] for k, v in sorted(profiling.totals().items())
+               if k.endswith("stream_dispatch_h")],
+           "fetches": fetch_waits(path, sctx.nwin * (sctx.B + 2) * 4)}
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
+    print(json.dumps(rec), flush=True)
+
+
+def trace_ab(other_root, summary):
+    """--trace: trace_step for the other tree, then this one."""
+    summary["trace"] = {}
+    for name, root in (("other", other_root), ("this", HERE)):
+        logdir = os.path.join(HERE, "chiprun_out", "device_trace",
+                              f"sched_{name}")
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--trace-step", root, logdir],
+                             capture_output=True, text=True, cwd=root)
+        if out.returncode:
+            raise RuntimeError(f"--trace-step {name} failed:\n"
+                               f"{out.stdout[-4000:]}{out.stderr[-4000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        summary["trace"][name] = rec
+        print(f"device-scheduled warm step, {name} tree: "
+              + json.dumps(rec), flush=True)
+
+
 def main(argv):
+    if "--trace-step" in argv:
+        at = argv.index("--trace-step")
+        trace_step(os.path.abspath(argv[at + 1]), argv[at + 2])
+        return 0
     other = (os.path.abspath(argv[argv.index("--other") + 1])
              if "--other" in argv else None)
     k4 = "--k4" in argv
     quotient = "--quotient" in argv
-    if (other is None and not k4) or (quotient and other is None):
+    sched = "--sched" in argv
+    trace = "--trace" in argv
+    if (other is None and not k4) or (
+            (quotient or sched or trace) and other is None):
         print(__doc__, file=sys.stderr)
         return 2
-    sweep = "--sweep" in argv and other is not None and not quotient
+    sweep = ("--sweep" in argv and other is not None and not quotient
+             and not sched)
     sys.path.insert(0, HERE)
     import torch
 
@@ -467,12 +687,17 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
+    if trace:
+        summary = {}
+        trace_ab(other, summary)
+        print(json.dumps(summary))
+        return 0
     out_dir = os.path.join(HERE, "build", "kernel_ab")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "probe.cu"), "w") as fh:
         fh.write(PROBE)
     builds = ({"other": (other, []), "this": (CSRC, [])}
-              if other and not quotient else {})
+              if other and not quotient and not sched else {})
     if sweep:
         for name, defs in SWEEP.items():
             builds["this_" + name] = (CSRC, defs)
@@ -494,11 +719,15 @@ def main(argv):
         for name, (src, defs) in qbuilds.items():
             so = os.path.join(out_dir, f"{name}.so")
             procs[name] = (nvcc([*NVCC_FLAGS, *defs, "-o", so, src]), so)
+    if sched:
+        so = os.path.join(out_dir, "sched_other.so")
+        procs["sched_other"] = (nvcc([*NVCC_FLAGS, "-o", so, os.path.join(
+            other, "sched_digits.cu")]), so)
     if k4:
         so = os.path.join(out_dir, "runsum.so")
         procs["runsum"] = (nvcc([*NVCC_FLAGS, "-I", CSRC, "-o", so, RUNSUM]),
                            so)
-    if k4 or quotient:
+    if k4 or quotient or sched:
         kernels.build()     # the port's kernels, meanwhile
     logs, libs, summary = {}, {}, {"sass": {}, "ms": {}, "ptxas": {}}
     for name, (proc, path) in procs.items():
@@ -534,6 +763,17 @@ def main(argv):
         libs["ntt"], libs["fp_vec"] = kernels.lib("ntt"), kernels.lib(
             "fp_vec")
         quotient_ab(libs, summary, out_dir)
+    if sched:
+        for name, log in (("sched_other", logs["sched_other"]), (
+                "sched_digits", kernels.BUILD_INFO.get("sched_digits", {})
+                .get("ptxas", ""))):
+            regs = [ln.strip() for ln in log.splitlines()
+                    if "Compiling" in ln or "registers" in ln
+                    or "spill" in ln]
+            summary["ptxas"][name] = regs
+            for ln in regs:
+                print(f"ptxas {name}: {ln}")
+        sched_ab(procs["sched_other"][1], summary)
     if k4:
         regs = [ln.strip() for ln in logs["runsum"].splitlines()
                 if "Compiling" in ln or "registers" in ln or "spill" in ln]
@@ -541,7 +781,7 @@ def main(argv):
         for ln in regs:
             print(f"ptxas runsum: {ln}")
         k4_ab(load_runsum(procs["runsum"][1]), summary)
-    if not other or quotient:
+    if not other or quotient or sched:
         print(json.dumps(summary))
         return 0
     for tree in ("other", "this"):

@@ -106,8 +106,13 @@ ENTRIES = {
                        [_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
                         _ci, _vp, _vp]),
                       ("pcd_finish_block", _ci, [])],
-    "sched_digits": [("pcd_sched_digits", _ci,
-                      [_vp, _cl, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp])],
+    "sched_digits": [("pcd_p1_digits", _ci,
+                      [_vp, _cl, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp]),
+                     ("pcd_p1_hist", _ci, [_vp, _ci, _cl, _ci, _vp, _vp]),
+                     ("pcd_p1_scan", _ci, [_vp, _ci, _ci, _ci, _vp, _vp]),
+                     ("pcd_p1_scatter", _ci,
+                      [_vp, _ci, _cl, _ci, _vp, _vp, _vp, _vp]),
+                     ("pcd_p1_tile", _ci, []), ("pcd_p1_warps", _ci, [])],
     "ntt": [("pcd_ntt_pass", _ci,
              [_vp, _vp, _vp, _vp, _cl, _ci, _vp, _vp, _vp, _ci, _vp, _cl,
               _ci, _vp, _cl])],

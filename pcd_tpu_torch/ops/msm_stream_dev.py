@@ -4,11 +4,14 @@ device; the digits, the sort, the histogram and the placement run there,
 and the schedule they give feeds the same K1 -> K4 -> Horner pipeline as
 the C++ schedule (ops/msm_stream.py):
 
-  card  P1: sched_digits (csrc/sched_digits.cu, one launch) recodes the
-        scalars' u32 words to signed c-bit digits, window-major; a stable
-        sort per window orders each window's scalars by digit magnitude,
-        and a search of the sorted keys gives the (nwin, B + 2) histogram,
-        its last column the overflow bin (a top-window digit above B);
+  card  P1 (csrc/sched_digits.cu, four launches): p1_digits recodes the
+        scalars' u32 words to signed c-bit digits, window-major; p1_hist
+        counts each tile's magnitudes, p1_scan turns the tiles' counts
+        into the (nwin, B + 2) histogram, its last column the overflow
+        bin (a top-window digit above B), and each tile's offset in each
+        bin; p1_scatter writes each window's scalar indices stably sorted
+        by digit magnitude (a counting sort: the magnitudes are 12-bit
+        keys at c = 12);
   host  the histogram is fetched (the one device-to-host sync of a
         schedule) and `_pick_shapes` takes the active windows, one shared
         round count T and maxrun from it, as the reference does;
@@ -26,9 +29,10 @@ P1 masks infinite rows to digit 0 when a table cannot flag them: the
 port's tables always flag infinity in-row (ops/ec.py), so there is no
 mask, and a schedule serves any table of the same length.
 
-On the CPU every step runs its plain torch version; on a CUDA device
-sched_digits launches (or raises) and nothing falls back to the host
-schedule.
+On the CPU every step runs its plain torch version (P1: the digits, a
+stable torch.sort and a searchsorted, the reference's three steps); on a
+CUDA device the P1 kernels launch (or raise) and nothing falls back to
+the torch sort or to the host schedule.
 """
 
 from __future__ import annotations
@@ -40,6 +44,28 @@ import torch
 
 from .ec import _LAUNCHES, _PLAIN
 from .msm_stream import StreamMSMCtx, stream_ctx
+
+# the P1 kernels (csrc/sched_digits.cu), each launched once a schedule
+P1_KERNELS = ("p1_digits", "p1_hist", "p1_scan", "p1_scatter")
+# scalars a tile of p1_hist and p1_scatter, and the warps that split it:
+# csrc/sched_digits.cu's constants (pcd_p1_tile, pcd_p1_warps), checked
+# against the library once (_p1_lib)
+P1_TILE = 8192
+P1_WARPS = 8
+
+
+@lru_cache(maxsize=None)
+def _p1_lib():
+    """csrc/sched_digits.cu's library, its tile and warps checked once
+    against P1_TILE and P1_WARPS (hist's shape and the plain versions'
+    warp segments)."""
+    from .kernels import lib
+
+    so = lib("sched_digits")
+    if (so.pcd_p1_tile(), so.pcd_p1_warps()) != (P1_TILE, P1_WARPS):
+        raise RuntimeError("csrc/sched_digits.cu's P1_TILE and P1_WARPS "
+                           "are not msm_stream_dev's")
+    return so
 
 
 class DevSchedule:
@@ -93,10 +119,10 @@ class DevSchedMSM:
 
     # -- P1: digits, sort, histogram ----------------------------------------
     def digits_plain(self, W: torch.Tensor):
-        """Plain version of sched_digits: (n, nwords) int32 words ->
-        (mags (nwin, n) int32 in [0, B + 1], signs (nwin, n) int8), the
-        carry chain of DevSchedMSM._p1 window by window, widened to int64
-        on W's device (torch has no unsigned 32-bit shifts)."""
+        """Plain version of the digits: (n, nwords) int32 words -> (mags
+        (nwin, n) int32 in [0, B + 1], signs (nwin, n) int8), the carry
+        chain of DevSchedMSM._p1 window by window, widened to int64 on W's
+        device (torch has no unsigned 32-bit shifts)."""
         s = self.sctx
         c, base, B = s.c, s.base_windows, s.B
         n, nw = W.shape
@@ -124,47 +150,171 @@ class DevSchedMSM:
         mags[base] = carry.to(torch.int32)
         return mags, signs
 
-    def digits(self, W: torch.Tensor):
-        """sched_digits: the kernel for a CUDA tensor, its plain version
-        for a CPU one (see digits_plain)."""
-        dev = W.device
-        key = ("sched_digits", self.form)
-        if dev.type == "cpu":
-            _PLAIN[key] += 1
-            return self.digits_plain(W)
-        if dev.type != "cuda":
-            raise ValueError(f"sched_digits: unsupported device {dev}")
-        if W.dtype != torch.int32 or W.dim() != 2 or not W.is_contiguous():
-            raise ValueError("sched_digits: contiguous (n, nwords) int32 "
-                             "expected")
-        from .kernels import lib
-
-        s = self.sctx
-        n, nw = W.shape
-        mags = torch.empty((s.nwin, n), dtype=torch.int32, device=dev)
-        signs = torch.empty((s.nwin, n), dtype=torch.int8, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib("sched_digits").pcd_sched_digits(
-            W.data_ptr(), n, nw, s.c, s.base_windows, int(s.carry_win), s.B,
-            mags.data_ptr(), signs.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"sched_digits launch failed: CUDA error {rc}")
-        _LAUNCHES[key] += 1
-        return mags, signs
-
-    def p1(self, W: torch.Tensor):
-        """(n, nwords) int32 words -> (order (nwin, n) int64, each window's
-        scalars stably sorted by digit magnitude; signs (nwin, n) int8;
-        counts (nwin, B + 2) int32, counts[w, b] the scalars of digit
-        magnitude b in window w, column B + 1 the overflow bin)."""
+    def p1_plain(self, W: torch.Tensor):
+        """Plain version of P1: the digits, a stable sort of each window's
+        magnitudes and a search of the sorted keys for the histogram (the
+        reference's three steps); returns what p1 returns."""
         B = self.sctx.B
-        mags, signs = self.digits(W)
+        mags, signs = self.digits_plain(W)
         skeys, order = torch.sort(mags, dim=1, stable=True)
         qs = torch.arange(B + 3, dtype=torch.int32, device=W.device)
         bounds = torch.searchsorted(
             skeys, qs.expand(mags.shape[0], -1).contiguous())
         counts = (bounds[:, 1:] - bounds[:, :-1]).to(torch.int32)
-        return order, signs, counts
+        return order.to(torch.int32), signs, counts
+
+    def p1(self, W: torch.Tensor):
+        """(n, nwords) int32 words -> (order (nwin, n) int32, each window's
+        scalars stably sorted by digit magnitude; signs (nwin, n) int8;
+        counts (nwin, B + 2) int32, counts[w, b] the scalars of digit
+        magnitude b in window w, column B + 1 the overflow bin).  On a CUDA
+        tensor the four P1 kernels (p1_tiles); on a CPU one p1_plain."""
+        dev = W.device
+        if dev.type == "cpu":
+            for k in P1_KERNELS:
+                _PLAIN[(k, self.form)] += 1
+            return self.p1_plain(W)
+        if dev.type != "cuda":
+            raise ValueError(f"P1: unsupported device {dev}")
+        return self.p1_tiles(W)
+
+    def p1_tiles(self, W: torch.Tensor):
+        """P1 as its kernels compute it, tiles of P1_TILE scalars: digits,
+        the tiles' histograms, their scan and the stable scatter.  On a CPU
+        tensor each step is its plain version, so this is the kernels'
+        tiled emulation."""
+        mags, signs = self.digits(W)
+        starts, counts = self.tile_scan(self.tile_hist(mags))
+        return self.scatter(mags, starts, counts), signs, counts
+
+    def _launch(self, kernel, entry, *args):
+        """The C entry `entry` of csrc/sched_digits.cu on the current
+        stream; counts the launch of `kernel`, or raises."""
+        rc = getattr(_p1_lib(), entry)(
+            *args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+        _LAUNCHES[(kernel, self.form)] += 1
+
+    def _on_card(self, kernel, t: torch.Tensor) -> bool:
+        """False for a CPU tensor (the plain version runs and is counted),
+        True for a CUDA one (the kernel launches); anything else raises."""
+        if t.device.type == "cpu":
+            _PLAIN[(kernel, self.form)] += 1
+            return False
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"{kernel}: a contiguous CPU or CUDA tensor "
+                             f"expected, not {t.device}")
+        return True
+
+    def digits(self, W: torch.Tensor):
+        """p1_digits: (n, nwords) int32 words -> (mags (nwin, n) int16 in
+        [0, B + 1], signs (nwin, n) int8)."""
+        if W.dtype != torch.int32 or W.dim() != 2:
+            raise ValueError("p1_digits: (n, nwords) int32 expected")
+        if not self._on_card("p1_digits", W):
+            mags, signs = self.digits_plain(W)
+            return mags.to(torch.int16), signs
+        s = self.sctx
+        n, nw = W.shape
+        mags = torch.empty((s.nwin, n), dtype=torch.int16, device=W.device)
+        signs = torch.empty((s.nwin, n), dtype=torch.int8, device=W.device)
+        self._launch("p1_digits", "pcd_p1_digits",
+                     W.data_ptr(), n, nw, s.c, s.base_windows,
+                     int(s.carry_win), s.B, mags.data_ptr(),
+                     signs.data_ptr())
+        return mags, signs
+
+    def tile_hist(self, mags: torch.Tensor):
+        """p1_hist: mags (nwin, n) int16 -> (nwin, ceil(n / P1_TILE),
+        B + 2) int32, each tile's count of each magnitude."""
+        nwin, n = mags.shape
+        K, nt = self.sctx.B + 2, -(-n // P1_TILE)
+        if not self._on_card("p1_hist", mags):
+            return self.hist_plain(mags)
+        hist = torch.empty((nwin, nt, K), dtype=torch.int32,
+                           device=mags.device)
+        self._launch("p1_hist", "pcd_p1_hist",
+                     mags.data_ptr(), nwin, n, K, hist.data_ptr())
+        return hist
+
+    def tile_scan(self, hist: torch.Tensor):
+        """p1_scan: hist (nwin, ntiles, K) -> (starts, counts): starts[w,
+        t, b] the keys of magnitude b in window w's tiles before t, counts
+        (nwin, K) the bin totals.  The kernel writes starts over hist."""
+        nwin, nt, K = hist.shape
+        if not self._on_card("p1_scan", hist):
+            return self.scan_plain(hist)
+        counts = torch.empty((nwin, K), dtype=torch.int32,
+                             device=hist.device)
+        self._launch("p1_scan", "pcd_p1_scan",
+                     hist.data_ptr(), nwin, nt, K, counts.data_ptr())
+        return hist, counts
+
+    def scatter(self, mags: torch.Tensor, starts: torch.Tensor,
+                counts: torch.Tensor):
+        """p1_scatter: mags (nwin, n), tile_scan's starts and counts ->
+        order (nwin, n) int32.  Each tile is P1_WARPS contiguous warp
+        segments; a key's slot is the window's keys of lower magnitude,
+        plus its magnitude's keys in the earlier tiles, in the earlier
+        segments of its tile and before it in its own segment."""
+        nwin, n = mags.shape
+        if not self._on_card("p1_scatter", mags):
+            return self.scatter_plain(mags, starts, counts)
+        order = torch.empty((nwin, n), dtype=torch.int32, device=mags.device)
+        self._launch("p1_scatter", "pcd_p1_scatter",
+                     mags.data_ptr(), nwin, n, self.sctx.B + 2,
+                     starts.data_ptr(), counts.data_ptr(), order.data_ptr())
+        return order
+
+    # the plain versions of p1_hist, p1_scan and p1_scatter, on any device;
+    # a tile other than P1_TILE (a multiple of 32 * P1_WARPS) emulates the
+    # kernels' geometry at a small size
+    def hist_plain(self, mags: torch.Tensor, tile: int = P1_TILE):
+        nwin, n = mags.shape
+        K, nt = self.sctx.B + 2, -(-n // tile)
+        dev = mags.device
+        t = torch.arange(n, device=dev) // tile
+        key = ((torch.arange(nwin, device=dev)[:, None] * nt + t) * K
+               + mags.to(torch.int64))
+        return torch.bincount(key.view(-1), minlength=nwin * nt * K).view(
+            nwin, nt, K).to(torch.int32)
+
+    @staticmethod
+    def scan_plain(hist: torch.Tensor):
+        h = hist.to(torch.int64)
+        starts = torch.cumsum(h, 1) - h
+        return starts.to(torch.int32), h.sum(1).to(torch.int32)
+
+    def scatter_plain(self, mags: torch.Tensor, starts: torch.Tensor,
+                      counts: torch.Tensor, tile: int = P1_TILE):
+        nwin, n = mags.shape
+        K, nt = self.sctx.B + 2, -(-n // tile)
+        seg, ns = tile // P1_WARPS, nt * P1_WARPS
+        dev = mags.device
+        j = torch.arange(n, device=dev)
+        t = j // tile
+        g = t * P1_WARPS + (j % tile) // seg          # the warp segment
+        key = mags.to(torch.int64)
+        gk = g * K + key                              # (nwin, n)
+        cnt = torch.bincount((torch.arange(nwin, device=dev)[:, None]
+                              * (ns * K) + gk).view(-1),
+                             minlength=nwin * ns * K).view(nwin, nt,
+                                                           P1_WARPS, K)
+        earlier = (torch.cumsum(cnt, 2) - cnt).view(nwin, ns * K)
+        first = (torch.cumsum(cnt.view(nwin, -1), 1)
+                 - cnt.view(nwin, -1))                # of (segment, key)
+        srt, idx = torch.sort(gk, dim=1, stable=True)
+        rank = torch.arange(n, device=dev) - first.gather(1, srt)
+        tk = t.expand(nwin, n).gather(1, idx) * K + key.gather(1, idx)
+        cnt64 = counts.to(torch.int64)
+        base = torch.cumsum(cnt64, 1) - cnt64         # lower magnitudes
+        slot = (base.gather(1, key.gather(1, idx))
+                + starts.view(nwin, nt * K).to(torch.int64).gather(1, tk)
+                + earlier.gather(1, srt) + rank)
+        order = torch.empty((nwin, n), dtype=torch.int32, device=dev)
+        order.scatter_(1, slot, idx.to(torch.int32))
+        return order
 
     # -- host: shapes from the fetched histogram ---------------------------
     def _pick_shapes(self, counts: np.ndarray):
@@ -228,7 +378,8 @@ class DevSchedMSM:
         live = (t < loads[:, None, :]).view(nact, T * L)
         k = (off_b.gather(1, b_l)[:, None, :] + t * lb_l[:, None, :]
              + j_l[:, None, :]).view(nact, T * L)
-        pidx = order.index_select(0, aidx).gather(1, torch.where(live, k, 0))
+        pidx = order.index_select(0, aidx).gather(
+            1, torch.where(live, k, 0)).to(torch.int64)
         neg = signs.index_select(0, aidx).gather(1, pidx).to(torch.int64)
         perm = torch.where(live, pidx - (neg << 31), 0)   # sign in bit 31
         return tuple(x.to(torch.int32).contiguous() for x in (

@@ -247,10 +247,10 @@ class GM17:
 
         g1, g2 = self.cfg.g1, self.cfg.g2
         c_nm = zpad_query(pk, "c_query", n_inst, g1)
-        with side_stream(self, self.device):
+        with side_stream(self, self.device) as sched:
             futs = stream_launch(
                 pk, (("a_query", g1), ("b_query", g2), (c_nm, g1)), g1,
-                self.Fr.BITS, z_ext, self.device)
+                self.Fr.BITS, z_ext, self.device, sched)
         futs["c_query"] = futs.pop(c_nm)
         return futs
 
@@ -275,11 +275,11 @@ class GM17:
         from ..msm_dispatch import side_stream, stream_msm_async
 
         reads = (h_limbs,) if isinstance(h_limbs, torch.Tensor) else ()
-        with side_stream(self, self.device, reads), \
+        with side_stream(self, self.device, reads) as sched, \
                 span("stream_dispatch_h"):
-            futs["h_query"] = stream_msm_async(pk, "h_query", self.cfg.g1,
-                                               self.Fr.BITS, h_limbs,
-                                               self.device)
+            futs["h_query"] = stream_msm_async(
+                pk, "h_query", self.cfg.g1, self.Fr.BITS, h_limbs,
+                self.device, sched_stream=sched)
 
     # -- prove ----------------------------------------------------------
     def prove(self, pk: GM17PK, circuit, rng):

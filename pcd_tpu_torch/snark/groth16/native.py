@@ -111,9 +111,11 @@ class Groth16:
     # enqueued on the device from a background thread as soon as z is
     # known, while the host C++ tier runs the matvec and the quotient
     # pipeline; the h MSM follows once the quotient lands, and the small
-    # window sums are fetched and Horner-combined after.  On a card all of
-    # it runs on one side stream; every future carries the CUDA event
-    # recorded after its work, and the collect waits on that event.  Once
+    # window sums are fetched and Horner-combined after.  On a card the
+    # schedules read the scalars on a schedule stream that waits only for
+    # their producer, and K1 and K4 run on one side stream; every future
+    # carries the CUDA event recorded after its work, and the collect waits
+    # on that event.  Once
     # a circuit is streamed, all five MSMs are: a missing one raises
     # rather than running on the host.
     STREAM_MIN = 24_000
@@ -131,11 +133,11 @@ class Groth16:
         # schedule upload
         g1, g2 = self.cfg.g1, self.cfg.g2
         l_nm = zpad_query(pk, "l_query", n_inst, g1)
-        with side_stream(self, self.device):
+        with side_stream(self, self.device) as sched:
             futs = stream_launch(
                 pk, (("a_query", g1), ("b_g1_query", g1),
                      ("b_g2_query", g2), (l_nm, g1)),
-                g1, self.Fr.BITS, z_limbs, self.device)
+                g1, self.Fr.BITS, z_limbs, self.device, sched)
         futs["l_query"] = futs.pop(l_nm)
         return futs
 
@@ -159,11 +161,11 @@ class Groth16:
         if futs is None:
             return False
         reads = (h_limbs,) if isinstance(h_limbs, torch.Tensor) else ()
-        with side_stream(self, self.device, reads), \
+        with side_stream(self, self.device, reads) as sched, \
                 span("stream_dispatch_h"):
-            futs["h_query"] = stream_msm_async(pk, "h_query", self.cfg.g1,
-                                               self.Fr.BITS, h_limbs,
-                                               self.device)
+            futs["h_query"] = stream_msm_async(
+                pk, "h_query", self.cfg.g1, self.Fr.BITS, h_limbs,
+                self.device, sched_stream=sched)
         return True
 
     @staticmethod

@@ -10,7 +10,9 @@ SCHEDULER picks who schedules a stream MSM: "host", the C++ tier's
 threaded msm_schedule, or "device", DevSchedMSM (ops/msm_stream_dev.py),
 where only the scalar limbs cross and the digits, sort and placement run
 on the device.  Both schedules feed the same K1 -> K4 -> Horner pipeline;
-it replaces the reference's PCD_TPU_DEVSCHED environment variable.
+it replaces the reference's PCD_TPU_DEVSCHED environment variable.  The
+default stays "host": on the H100 the device scheduler's warm step did
+not pass PERF.md's rule in each of two chip calls (PERF.md section 6).
 
 QUOTIENT picks who computes the Groth16 and GM17 provers' quotient h =
 (A B - C)/Z_H: "host", the C++ tier's CSR matvec and fused `hpoly`, or
@@ -20,10 +22,17 @@ and the pointwise steps (ops/fft_tensor.py) run there, so h stays on the
 device for the h-query MSM.
 
 The stream tier runs on the device the prover was built for: on a CUDA
-device the kernels of ops/ec.py, on the CPU their plain versions.  Work is
-enqueued on the caller's current stream (the prover's side stream); each
-future carries the CUDA event recorded after it, and `stream_collect`
-waits on that event before it reads the window sums.
+device the kernels of ops/ec.py, on the CPU their plain versions.  K1 and
+K4 are enqueued on the caller's current stream (the prover's side
+stream); each future carries the CUDA event recorded after it, and
+`stream_collect` waits on that event before it reads the window sums.
+The schedule reads the scalars on the prover's schedule stream
+(`side_stream` yields it), which waits only for the scalars' producer:
+the quotient's stream for h, nothing for z, which it uploads itself.  So
+the device schedule's P1 and its histogram fetch, or the host
+scheduler's fetch of h, do not queue behind the side stream's K1 and K4
+of the earlier MSMs; the side stream waits for the placement through an
+event.
 """
 
 from __future__ import annotations
@@ -42,9 +51,11 @@ from ..utils.profiling import span
 WINDOW_BITS = 12
 LANES = 8192
 # Who schedules the stream MSMs, "host" or "device" (see the module
-# docstring).  "host" from the H100 measurements in PERF.md: the device
-# schedule cut the schedule spans tenfold, but the warm step's gain stayed
-# inside its spread between steps.
+# docstring).  "host" by the rule in PERF.md: "device" becomes the
+# default only when its Groth16 warm step is shorter in nine tenths of
+# phase 4's pairs, its median by more than the host steps' interquartile
+# distance, in each of two chip calls on one tree; on the H100 it was not
+# (PERF.md section 6).
 SCHEDULER = "host"
 # Who computes the provers' quotient, "host" or "device" (see the module
 # docstring).  "device" by the rule in PERF.md (PR 6): on the H100 the
@@ -139,25 +150,36 @@ def msm_any(query, scalars):
     return host_msm([a for a, _ in nz], [b for _, b in nz])
 
 
+def _owned_stream(owner, attr: str, device):
+    """owner.<attr>, a CUDA stream on `device` made on first use."""
+    st = getattr(owner, attr, None)
+    if st is None:
+        st = torch.cuda.Stream(device)
+        setattr(owner, attr, st)
+    return st
+
+
 @contextlib.contextmanager
 def side_stream(owner, device, reads=()):
     """Context manager placing work on `owner`'s MSM side stream, made on
-    first use (a no-op on the CPU).  `reads`: tensors that the caller's
-    current stream computed and the side stream's work reads; the side
-    stream first waits for the caller's stream, and their memory stays
-    reserved until the side stream's work is done."""
+    first use; it yields `owner`'s schedule stream, where `schedule` reads
+    the scalars (a no-op yielding None on the CPU).  `reads`: scalars
+    that the caller's current stream computed (the device quotient's h);
+    the schedule stream first waits for the caller's stream, and their
+    memory stays reserved until the schedule stream's work is done.  The
+    schedule stream waits for nothing else, so a schedule does not queue
+    behind the side stream's earlier K1 and K4."""
     if device.type != "cuda":
-        yield
+        yield None
         return
-    if getattr(owner, "_msm_stream", None) is None:
-        owner._msm_stream = torch.cuda.Stream(device)
-    side = owner._msm_stream
+    side = _owned_stream(owner, "_msm_stream", device)
+    sched = _owned_stream(owner, "_sched_stream", device)
     if reads:
-        side.wait_stream(torch.cuda.current_stream(device))
+        sched.wait_stream(torch.cuda.current_stream(device))
         for t in reads:
-            t.record_stream(side)
+            t.record_stream(sched)
     with torch.cuda.stream(side):
-        yield
+        yield sched
 
 
 def zpad_query(pk, nm: str, n_inst: int, curve) -> str:
@@ -173,10 +195,12 @@ def zpad_query(pk, nm: str, n_inst: int, curve) -> str:
     return pad
 
 
-def stream_launch(pk, queries, h_curve, scalar_bits: int, z_limbs, device):
+def stream_launch(pk, queries, h_curve, scalar_bits: int, z_limbs, device,
+                  sched_stream=None):
     """Build the stream tables of `queries` ((name, curve) pairs) and of
     h_query, then enqueue the queries' MSMs against z_limbs, one shared
-    schedule, without waiting.  Returns {name: future}."""
+    schedule (on `sched_stream`, see `schedule`), without waiting.
+    Returns {name: future}."""
     for nm, curve in tuple(queries) + (("h_query", h_curve),):
         stream_table(pk, nm, curve, scalar_bits, device)
     futs = {}
@@ -184,7 +208,8 @@ def stream_launch(pk, queries, h_curve, scalar_bits: int, z_limbs, device):
     with span("stream_dispatch"):
         for nm, curve in queries:
             futs[nm] = stream_msm_async(pk, nm, curve, scalar_bits, z_limbs,
-                                        device, sched_cache=sched_cache)
+                                        device, sched_cache=sched_cache,
+                                        sched_stream=sched_stream)
     return futs
 
 
@@ -217,7 +242,8 @@ def stream_table(pk, nm: str, curve, scalar_bits: int, device):
 
 
 def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
-                     device, sched_cache=None, offset=None):
+                     device, sched_cache=None, offset=None,
+                     sched_stream=None):
     """Enqueue one query MSM on the stream tier without waiting; returns
     a future for stream_collect.  scal_limbs: (n, NL) u64 canonical limbs
     (truncated to the table length; fewer scalars than points raises),
@@ -236,7 +262,10 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
     a/b1/b2 (+ padded l) MSMs — one z vector against four tables — share
     one schedule and one upload.  The key identifies the scalar vector by
     a digest of its limbs (the reference keys on (c, L, qn) alone, which is
-    right only while every caller passes the same z)."""
+    right only while every caller passes the same z).
+
+    sched_stream: the stream `schedule` reads the scalars on (None: the
+    current one)."""
     sctx, table, _ = stream_table(pk, nm, curve, scalar_bits, device)
     qn = len(getattr(pk, nm))
     on_dev = isinstance(scal_limbs, torch.Tensor)
@@ -261,32 +290,45 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                                                    digest_size=16).digest())
         sched = sched_cache.get(key)
     if sched is None:
-        sched = schedule(sctx, sl, device)
+        sched = schedule(sctx, sl, device, sched_stream)
         if key is not None:
             sched_cache[key] = sched
     return (sctx, sched.act) + sctx.window_sums_async(table, sched)
 
 
-def schedule(sctx, scal_limbs, device):
+def schedule(sctx, scal_limbs, device, stream=None):
     """The schedule of (n, NL) u64 limb scalars (or (n, 10) int32 limbs on
     the device) by SCHEDULER: the C++ tier's StreamSchedule, or a
-    DevSchedule computed on `device` (its one histogram fetch waits on
-    the caller's current stream, the prover's MSM side stream).  Either
+    DevSchedule computed on `device`.  The scalars are read on `stream`
+    (None: the current stream): under "host" the fetch of device limbs,
+    under "device" the upload, P1, its one histogram fetch and the
+    placement; the current stream then waits for the placement through an
+    event, and the placement's tensors stay reserved for it.  Either
     raises on failure; neither falls back."""
     from ..ops.field import limbs_host
 
     on_dev = isinstance(scal_limbs, torch.Tensor)
     if SCHEDULER == "host":
         with span("schedule_host"):
-            return sctx.schedule_native(limbs_host(scal_limbs) if on_dev
-                                        else scal_limbs)
+            if on_dev:
+                with torch.cuda.stream(stream):
+                    scal_limbs = limbs_host(scal_limbs)
+            return sctx.schedule_native(scal_limbs)
     if SCHEDULER == "device":
         from ..ops.msm_stream_dev import devsched_ctx
 
         dm = devsched_ctx(sctx.curve, sctx.scalar_bits, sctx.c, sctx.L)
         with span("schedule_device"):
-            return dm.schedule(scal_limbs.to(device).contiguous() if on_dev
-                               else dm.upload(scal_limbs, device))
+            with torch.cuda.stream(stream):
+                sched = dm.schedule(scal_limbs.to(device).contiguous()
+                                    if on_dev else dm.upload(scal_limbs,
+                                                             device))
+            if stream is not None:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_stream(stream)
+                for t in sched.tensors or ():
+                    t.record_stream(cur)
+            return sched
     raise ValueError(f"msm_dispatch.SCHEDULER: 'host' or 'device', not "
                      f"{SCHEDULER!r}")
 

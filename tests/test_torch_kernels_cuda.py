@@ -234,37 +234,147 @@ def test_kzg_stream_at_offset_on_card(cyc, cuda_device):
     assert comm.shifted == host_msm(powers.slice(off, off + 2000), coeffs)
 
 
+def _p1_ctx(carry_win=False):
+    """The device scheduler of the chains' 298-bit G1 MSMs at c = 12 (298
+    bits: the top window absorbs the carry; 300: it gets a window of its
+    own)."""
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+
+    cfg = M.mnt_cycle().main
+    sctx = StreamMSMCtx(cfg.g1, 300 if carry_win else cfg.Fr.BITS, c=12,
+                        lanes=8192)
+    assert sctx.carry_win == carry_win
+    return cfg, DevSchedMSM(sctx)
+
+
+def _p1_scalars(case, cfg, n=1 << 16):
+    r = cfg.Fr.MODULUS
+    rng = np.random.default_rng(12)
+    if case == "all_zero":
+        return [0] * n
+    if case == "one_bin":
+        return [5] * n
+    if case == "low_entropy":             # digits in windows 0 and 5 only
+        return [(i % 1009) | ((i % 3 + 1) << 60) for i in range(n)]
+    if case == "one_scalar":
+        n = 1
+    elif case == "ragged":                # not a multiple of the tile
+        n = 3 * 8192 + 101
+    scalars = [int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)]
+    scalars[:4] = [0, 1, r - 1, (1 << 297) - 1][:n]
+    return scalars
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("carry_win", [False, True], ids=["absorbed",
                                                           "carry_win"])
 def test_sched_digits_match_plain(carry_win, cuda_device):
-    """sched_digits on 2^16 298-bit scalars at c = 12 (298 bits: the top
-    window absorbs the carry; 300: it gets a window of its own) against
-    its plain version and the host digits, limb for limb, one launch."""
+    """p1_digits on 2^16 298-bit scalars at c = 12 against its plain
+    version and the host digits, limb for limb, one launch."""
     from pcd_tpu_torch import native
-    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
 
-    cfg = M.mnt_cycle().main
-    bits = 300 if carry_win else cfg.Fr.BITS
-    sctx = StreamMSMCtx(cfg.g1, bits, c=12, lanes=8192)
-    assert sctx.carry_win == carry_win
-    dm = DevSchedMSM(sctx)
-    rng = np.random.default_rng(12)
-    r = cfg.Fr.MODULUS
-    scalars = [int.from_bytes(rng.bytes(40), "little") % r
-               for _ in range(1 << 16)]
-    scalars[:4] = [0, 1, r - 1, (1 << 297) - 1]
-    limbs = native.ints_to_limbs(scalars)
+    cfg, dm = _p1_ctx(carry_win)
+    limbs = native.ints_to_limbs(_p1_scalars("dense", cfg))
     W = dm.upload(limbs, cuda_device)
-    key = ("sched_digits", dm.form)
+    key = ("p1_digits", dm.form)
     before = launch_counts().get(key, 0)
     mags, signs = dm.digits(W)
     assert launch_counts()[key] == before + 1
     pm, ps = dm.digits_plain(W)
-    assert torch.equal(mags, pm) and torch.equal(signs, ps)
-    hm, hs = sctx.digits_signed(limbs)
+    assert torch.equal(mags.int(), pm) and torch.equal(signs, ps)
+    hm, hs = dm.sctx.digits_signed(limbs)
     assert np.array_equal(mags.cpu().numpy(), hm)
     assert np.array_equal(signs.cpu().numpy().astype(bool), hs)
+
+
+P1_CASES = [("dense", False), ("dense", True), ("all_zero", False),
+            ("one_bin", False), ("low_entropy", False),
+            ("one_scalar", False), ("ragged", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,carry_win", P1_CASES,
+                         ids=[f"{a}-{'cw' if b else 'abs'}"
+                              for a, b in P1_CASES])
+def test_p1_kernels_match_plain(case, carry_win, cuda_device):
+    """The four P1 kernels at c = 12 (2,050 bins), each against its plain
+    version on the same inputs and P1 as a whole against the plain P1
+    (the digits, a stable torch.sort and a searchsorted), element for
+    element; each kernel launched once."""
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
+
+    cfg, dm = _p1_ctx(carry_win)
+    W = dm.upload(native.ints_to_limbs(_p1_scalars(case, cfg)), cuda_device)
+    before = {k: launch_counts().get((k, dm.form), 0) for k in P1_KERNELS}
+    order, signs, counts = dm.p1(W)
+    assert {k: launch_counts().get((k, dm.form), 0) - before[k]
+            for k in P1_KERNELS} == {k: 1 for k in P1_KERNELS}
+    want = dm.p1_plain(W)
+    for got, w in zip((order, signs, counts), want):
+        assert got.dtype == w.dtype and torch.equal(got, w)
+    assert not counts[:, -1].any()
+    mags, _ = dm.digits(W)
+    hist = dm.tile_hist(mags)
+    assert torch.equal(hist, dm.hist_plain(mags))
+    starts_p, counts_p = dm.scan_plain(hist)
+    starts, counts_k = dm.tile_scan(hist)
+    assert torch.equal(starts, starts_p) and torch.equal(counts_k, counts_p)
+    assert torch.equal(dm.scatter(mags, starts, counts_k),
+                       dm.scatter_plain(mags, starts, counts_k))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_p1_overflow_raises_on_card(cuda_device):
+    """A scalar wider than 298 bits fills the overflow bin on the card and
+    the device schedule raises."""
+    from pcd_tpu_torch import native
+
+    cfg, dm = _p1_ctx()
+    scalars = _p1_scalars("dense", cfg, 5000)
+    scalars[4321] = (1 << 300) - 1
+    W = dm.upload(native.ints_to_limbs(scalars), cuda_device)
+    _, _, counts = dm.p1(W)
+    assert counts[:, -1].tolist() == [0] * (dm.sctx.nwin - 1) + [1]
+    assert torch.equal(counts, dm.p1_plain(W)[2])
+    with pytest.raises(ValueError, match="scalar_bits"):
+        dm.schedule(W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_devsched_msm_on_sched_stream(form, cuda_device, monkeypatch):
+    """A device-scheduled MSM through msm_dispatch as the provers run it:
+    the schedule (upload, P1, histogram fetch, placement) on the owner's
+    schedule stream, K1 and K4 on its side stream after the placement's
+    event; equals the C++ Pippenger, for host limbs and for device limbs
+    computed on the caller's stream."""
+    from pcd_tpu_torch.ops.field import upload_limbs
+    from pcd_tpu_torch.snark import msm_dispatch
+
+    monkeypatch.setattr(msm_dispatch, "SCHEDULER", "device")
+    cfg, curve, pts, xs, ys, inf = _table(form, 3000, 15)
+    sctx = StreamMSMCtx(curve, cfg.Fr.BITS, c=8, lanes=256)
+    table = sctx.table_from_limbs(xs, ys, inf, cuda_device)
+    rng = np.random.default_rng(16)
+    r = cfg.Fr.MODULUS
+    scalars = [int.from_bytes(rng.bytes(40), "little") % r
+               for _ in range(len(pts))]
+    limbs = sctx.limb_rows(scalars, 40)           # (n, 5) u64, as z and h
+    want = host_msm(pts, scalars)
+
+    class Owner:
+        pass
+
+    owner = Owner()
+    dev_limbs = upload_limbs(limbs, cuda_device)
+    for scal, reads in ((limbs, ()), (dev_limbs, (dev_limbs,))):
+        with msm_dispatch.side_stream(owner, cuda_device, reads) as sched:
+            assert sched is owner._sched_stream
+            s = msm_dispatch.schedule(sctx, scal, cuda_device, sched)
+            ws, ev = sctx.window_sums_async(table, s)
+        assert sctx.horner_host(sctx.collect(ws, ev), s.act) == want
 
 
 @pytest.mark.cuda
