@@ -30,7 +30,8 @@ status line:
      case, a warm step-2 prove, both verified, and the negative check
      (the old message against the newest proof must be rejected); every
      kernel instantiation must have launched on that path, K1 exactly
-     once per commitment MSM, K4 once per commitment MSM, K2 never;
+     once per commitment MSM, K4 once per commitment MSM, K2 and K3
+     never;
      CUDA-event device time of every launch of the warm step, of the
      whole finish (StreamMSMCtx._finish), and of the warm step's finishes
      replayed through K4 and through finish_steps in turns; then six more
@@ -173,6 +174,10 @@ REPLACES = {
     ("bucket_finish", 3): "pcd_tpu/ops/ec32.py:1211, "
                           "pcd_tpu/ops/ec32.py:1003",
     ("complete_add", 1): "pcd_tpu/ops/ec32.py:436",
+    # the elementwise G2 add (_add_pallas_T of EC32ExtCtx.add), whose
+    # finish use K4 took
+    ("complete_add", 2): "pcd_tpu/ops/ec32.py:1003",
+    ("complete_add", 3): "pcd_tpu/ops/ec32.py:1003",
     ("madd", 1): "pcd_tpu/ops/ec32.py:620",
     # no Pallas site: the XLA program of DevSchedMSM._p1 (lines 67-118):
     # its digit glue, argsort and searchsorted
@@ -358,30 +363,21 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
     (T = 8, the help circuit's rounds) with zero loads and flagged rows,
     K2 on K1's 204800 outputs as pairs with P = Q, P = -Q and identities;
     K3 for the G1 forms (check_madd); K4 on a real schedule
-    (check_finish).  Returns the `kernels` records of K2<1> and K3."""
+    (check_finish).  Returns the `kernels` records of K2 and K3, with
+    their group size, registers, spills and resident blocks printed."""
     import numpy as np
     import torch
 
-    from pcd_tpu_torch import native
     from pcd_tpu_torch.ops.ec import ec_ctx
 
     dev = torch.device(dev)
     rng = np.random.default_rng(2026)
     records = []
     for form, cfg, which in form_cases():
-        curve, gen = getattr(cfg, which), getattr(cfg, which + "_gen")
-        ec = ec_ctx(curve)
+        ec = ec_ctx(getattr(cfg, which))
         D = ec.d
-        xs, ys, inf = raw_points(native, gen, [int(s) for s in rng.integers(
-            1, 1 << 62, m)], cfg.Fr.BITS)
-        inf[rng.choice(m, 64, replace=False)] = True      # flagged rows
-        table = torch.from_numpy(ec.table_from_u64(xs, ys, inf)).to(dev)
-        perm = (rng.integers(0, m, (nwin, T, L), dtype=np.int64)
-                | (rng.integers(0, 2, (nwin, T, L), dtype=np.int64) << 31))
-        perm = torch.from_numpy(perm.astype(np.uint32).view(np.int32)).to(dev)
-        loads_np = rng.integers(0, T + 1, (nwin, L)).astype(np.int32)
-        loads_np[:, ::7] = 0                               # zero loads
-        loads = torch.from_numpy(loads_np).to(dev)
+        table, perm, loads = k1_inputs(ec, cfg, which, rng, dev, nwin, T, L,
+                                       m)
         got = ec.madd_accumulate(table, perm, loads)
         want = ec.madd_accumulate_plain(table, perm, loads)
         if not torch.equal(got, want):
@@ -390,17 +386,8 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
         say(2, f"K1 madd_accumulate {form}: exact on {nwin}x{L} lanes, "
                f"T={T}; {ms:.3f} ms")
         # K2 on pairs built from K1's projective outputs
-        P = got.reshape(-1, 3, D, 10)
+        P, Q, k = pair_inputs(ec, got)
         n = P.shape[0]
-        Q = P[torch.randperm(n, device=dev)].clone()
-        k = n // 16
-        Q[:k] = P[:k]                                      # P = Q
-        negY = ec.f.from_plain(ec.f.neg(ec.f.to_plain(P[k:2 * k, 1])))
-        Q[k:2 * k] = P[k:2 * k]
-        Q[k:2 * k, 1] = negY                               # P = -Q
-        Q[2 * k:3 * k] = ec.identity((k,), dev)            # Q = O
-        P = P.clone()
-        P[3 * k:4 * k] = ec.identity((k,), dev)            # P = O
         got2 = ec.add(P, Q)
         sync(dev)
         t0 = time.perf_counter()
@@ -413,12 +400,14 @@ def phase_kernels(dev="cuda", nwin=25, T=8, L=8192, m=4096):
         if bool(got2[k:2 * k, 2].any()):
             raise AssertionError(f"K2 {form}: P + (-P) is not the identity")
         ms = device_ms(lambda: ec.add(P, Q), 10, dev)
+        rcb, own = MULS_ADD * PRODUCTS[D], own_products("complete_add", ec)
+        rec = record("complete_add", form, D, 0, ms, plain_ms,
+                     3 * P.numel() * 4, n * min(rcb, own) * 2)
+        records.append(rec)
         say(2, f"K2 complete_add {form}: exact on {n} pairs; {ms:.3f} ms, "
-               f"plain {plain_ms:.0f} ms")
+               f"{bound_text(rec, n, own, rcb)}, plain {plain_ms:.0f} ms; "
+               f"{geometry('complete_add', ec)}")
         if which == "g1":
-            records.append(record("complete_add", form, 1, 0, ms, plain_ms,
-                                  3 * P.numel() * 4,
-                                  n * MULS_ADD * PRODUCTS[1] * 2))
             records.append(check_madd(ec, table, got.reshape(-1, 3, D, 10),
                                       rng, form))
         check_finish(ec, cfg, which, rng, form, dev)
@@ -524,21 +513,9 @@ def check_madd(ec, table, acc0, rng, form):
     import torch
 
     dev = acc0.device
-    n, m = acc0.shape[0], table.shape[0]
-    idx = rng.integers(0, m, n).astype(np.uint32)
-    sign_np = rng.integers(0, 2, n).astype(np.int32)
-    act_np = (rng.random(n) >= 0.25).astype(np.int32)
-    k = n // 16
-    sign_np[k:k + k // 2] = 0                          # acc = Q: doubling
-    sign_np[k + k // 2:2 * k] = 1                      # acc = Q: P - P
-    q = table[torch.from_numpy(idx.astype(np.int64)).to(dev)].contiguous()
-    sign = torch.from_numpy(sign_np).to(dev)
-    active = torch.from_numpy(act_np).to(dev)
-    acc = acc0.clone()
-    acc[:2 * k] = ec.identity((2 * k,), dev)           # acc = O
-    acc[k:2 * k, :2] = q[k:2 * k]                      # acc = (x2 : y2 : 1)
-    acc[k:2 * k, 0, 0, 9] &= 0x7FFFFFFF                # (flag bit cleared)
-    acc[k:2 * k, 2] = acc[:k, 1]
+    n = acc0.shape[0]
+    acc, q, sign, active, idx, sign_np, act_np, k = madd_inputs(
+        ec, table, acc0, rng)
     sync(dev)
     t0 = time.perf_counter()
     want = ec.madd_plain(acc, q, sign, active)
@@ -561,13 +538,151 @@ def check_madd(ec, table, acc0, rng, form):
         raise AssertionError(f"K3 {form}: != K1 at T = 1")
     ms = device_ms(lambda: ec.madd(acc, q, sign, active), 10, dev)
     nbytes = n * (2 * 3 + 2) * 10 * 4 + 2 * n * 4
+    adds = int(live.sum())
+    rcb, own = MULS_MADD * PRODUCTS[1], own_products("madd", ec)
     rec = record("madd", form, 1, err, ms, plain_ms, nbytes,
-                 int(live.sum()) * MULS_MADD * PRODUCTS[1] * 2)
+                 adds * min(rcb, own) * 2)
     say(2, f"K3 madd {form}: exact against plain and K1 at T = 1 on {n} "
-           f"rows ({int(live.sum())} mixed adds); {ms:.3f} ms, bound "
-           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
-           f"{plain_ms:.0f} ms")
+           f"rows ({adds} mixed adds); {ms:.3f} ms, "
+           f"{bound_text(rec, adds, own, rcb)}, plain {plain_ms:.0f} ms; "
+           f"{geometry('madd', ec)}")
     return rec
+
+
+def k1_inputs(ec, cfg, which, rng, dev, nwin=25, T=8, L=8192, m=4096):
+    """K1's phase-2 operands: a table of m real points (C++ fixed-base,
+    64 rows flagged infinity), nwin x T x L random rows and signs, loads
+    uniform in 0..T with every seventh lane's 0.  Returns (table, perm,
+    loads) on dev."""
+    import numpy as np
+    import torch
+
+    from pcd_tpu_torch import native
+
+    gen = getattr(cfg, which + "_gen")
+    xs, ys, inf = raw_points(native, gen, [int(s) for s in rng.integers(
+        1, 1 << 62, m)], cfg.Fr.BITS)
+    inf[rng.choice(m, 64, replace=False)] = True      # flagged rows
+    table = torch.from_numpy(ec.table_from_u64(xs, ys, inf)).to(dev)
+    perm = (rng.integers(0, m, (nwin, T, L), dtype=np.int64)
+            | (rng.integers(0, 2, (nwin, T, L), dtype=np.int64) << 31))
+    perm = torch.from_numpy(perm.astype(np.uint32).view(np.int32)).to(dev)
+    loads_np = rng.integers(0, T + 1, (nwin, L)).astype(np.int32)
+    loads_np[:, ::7] = 0                               # zero loads
+    return table, perm, torch.from_numpy(loads_np).to(dev)
+
+
+def pair_inputs(ec, acc):
+    """K2's phase-2 operands from K1's (..., 3, d, 10) outputs: P those
+    points, Q a shuffle of them with P = Q in the first sixteenth, P = -Q
+    in the second, Q = O in the third and P = O in the fourth.  Returns
+    (P, Q, a sixteenth)."""
+    import torch
+
+    dev = acc.device
+    P = acc.reshape(-1, 3, ec.d, 10)
+    n = P.shape[0]
+    Q = P[torch.randperm(n, device=dev)].clone()
+    k = n // 16
+    Q[:k] = P[:k]                                      # P = Q
+    negY = ec.f.from_plain(ec.f.neg(ec.f.to_plain(P[k:2 * k, 1])))
+    Q[k:2 * k] = P[k:2 * k]
+    Q[k:2 * k, 1] = negY                               # P = -Q
+    Q[2 * k:3 * k] = ec.identity((k,), dev)            # Q = O
+    P = P.clone()
+    P[3 * k:4 * k] = ec.identity((k,), dev)            # P = O
+    return P, Q, k
+
+
+def madd_inputs(ec, table, acc0, rng):
+    """K3's phase-2 operands on K1's n lane outputs acc0: q gathered from
+    the table (its flagged rows included), mixed signs, a quarter of the
+    rows inactive; a sixteenth of the accumulators the identity and a
+    sixteenth Q itself (half of those with Q's sign cleared, a doubling,
+    half set, P + (-P)).  Returns acc, q, sign, active and their numpy
+    row indices, signs and flags, and the sixteenth."""
+    import numpy as np
+    import torch
+
+    dev = acc0.device
+    n, m = acc0.shape[0], table.shape[0]
+    idx = rng.integers(0, m, n).astype(np.uint32)
+    sign_np = rng.integers(0, 2, n).astype(np.int32)
+    act_np = (rng.random(n) >= 0.25).astype(np.int32)
+    k = n // 16
+    sign_np[k:k + k // 2] = 0                          # acc = Q: doubling
+    sign_np[k + k // 2:2 * k] = 1                      # acc = Q: P - P
+    q = table[torch.from_numpy(idx.astype(np.int64)).to(dev)].contiguous()
+    sign = torch.from_numpy(sign_np).to(dev)
+    active = torch.from_numpy(act_np).to(dev)
+    acc = acc0.clone()
+    acc[:2 * k] = ec.identity((2 * k,), dev)           # acc = O
+    acc[k:2 * k, :2] = q[k:2 * k]                      # acc = (x2 : y2 : 1)
+    acc[k:2 * k, 0, 0, 9] &= 0x7FFFFFFF                # (flag bit cleared)
+    acc[k:2 * k, 2] = acc[:k, 1]
+    return acc, q, sign, active, idx, sign_np, act_np, k
+
+
+def own_products(kernel, ec):
+    """32x32-bit partial products one add of K2 ("complete_add") or K3
+    ("madd") issues in this form: an Fp^D product D (100 D + 110), the nr
+    scalings 10 (D - 1).  The group add (csrc/ec_group.cuh): six (K3:
+    five) products of the inputs, two by 3b, four by a or a^2 (in the
+    small-a form scalings of 20 D: the scaling and its quotient's
+    multiple of p), and X3, Y3, Z3 each D (200 D + 110) + 20 (D - 1).
+    K2's one-thread body (lanes 0): 18 products."""
+    D = ec.d
+    prod = D * (100 * D + 110) + 10 * (D - 1)
+    if ec.kernel_info(kernel)["group"] == 0:
+        return 18 * prod
+    sum2 = D * (200 * D + 110) + 20 * (D - 1)
+    by_a = 4 * 20 * D if ec.small_a else 4 * prod
+    return (6 if kernel == "complete_add" else 5) * prod + 2 * prod \
+        + by_a + 3 * sum2
+
+
+def bound_text(rec, adds, own, rcb):
+    """K2's or K3's bound as phase 2 prints it: by the fewer of the
+    kernel's own partial products an add and RCB15's count (18 or 17
+    Fp^D products of PRODUCTS each), and the time RCB15's count alone
+    would bound, over `adds` adds."""
+    rcb_ms = adds * rcb * 2 / INT32_MAD_PER_S * 1e3
+    return (f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{min(own, rcb)} partial products an add: own {own}, RCB15's "
+            f"{rcb}, which bounds at {rcb_ms:.4f} ms)")
+
+
+def geometry(kernel, ec):
+    """K2's or K3's group, block, registers, local bytes and resident
+    blocks per SM in this form's instantiation, with ptxas' spill line."""
+    from pcd_tpu_torch.ops import kernels
+
+    g = ec.kernel_info(kernel)
+    key = (f"{kernel}_kernelILi{ec.d}ELb{int(ec.small_a)}E" if g["group"]
+           else f"{kernel}_oneILi{ec.d}E")
+    spill = ptxas_lines(kernels.BUILD_INFO.get(kernel, {}).get("ptxas", ""),
+                        key)
+    lanes = (f"{g['group']} lane{'s' * (g['group'] > 1)} an add"
+             if g["group"] else "one thread an add (rcb_add)")
+    return (f"{lanes}, {g['threads']} threads a block "
+            f"(min {g['min_blocks']}), {g['registers']} registers, "
+            f"{g['local_bytes']} local bytes, {g['smem_bytes']} shared "
+            f"bytes a block, {g['blocks_per_sm']} blocks per SM"
+            + (f"; ptxas: {spill}" if spill else ""))
+
+
+def ptxas_lines(log, key):
+    """ptxas' spill and register lines of the entry whose mangled name
+    holds `key` ("" if the log has none)."""
+    out, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" \
+                in line:
+            on = key in line
+            continue
+        if on and ("spill" in line or "registers" in line):
+            out.append(line.strip())
+    return "; ".join(dict.fromkeys(out))
 
 
 def record(kernel, form, D, err, ms, plain_ms, nbytes, mads):
@@ -1027,7 +1142,7 @@ class LaunchProbe:
 
 def check_once_per_msm(counts, forms, what):
     """K1 and K4 of every form exactly once per commitment MSM of one
-    prove of each side, K2 never; each P1 kernel once per schedule
+    prove of each side, K2 and K3 never; each P1 kernel once per schedule
     (P1_PER_PROVE a prove of each side) under the device scheduler, never
     under the host one."""
     from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
@@ -1048,8 +1163,9 @@ def check_once_per_msm(counts, forms, what):
                 raise AssertionError(f"{what}: {k}[{f}] launched "
                                      f"{counts.get((k, f), 0)} times, "
                                      f"expected {want}")
-        if counts.get(("complete_add", f), 0):
-            raise AssertionError(f"{what}: complete_add[{f}] launched")
+        for k in ("complete_add", "madd"):
+            if counts.get((k, f), 0):
+                raise AssertionError(f"{what}: {k}[{f}] launched")
 
 
 # the device quotient's kernels (on the path only under QUOTIENT "device")

@@ -7,6 +7,7 @@ checkout:
     python3 kernel_ab.py --quotient --other DIR
     python3 kernel_ab.py --sched --other DIR
     python3 kernel_ab.py --trace --other ROOT
+    python3 kernel_ab.py --ec --other DIR [--sweep]
 
 --other DIR: K1 (madd_accumulate) of this checkout against K1 of another
 copy of pcd_tpu_torch/csrc, and the integer multiply-adds one field
@@ -79,6 +80,24 @@ its start on the card, its stream, and the kernels that ran in that
 wait on its stream and on the others (ms of overlap by kernel name).
 The traces are kept, gzipped, under chiprun_out/device_trace/.
 
+--ec --other DIR: K2 (complete_add, the four forms of the main path)
+and K3 (madd, the G1 forms) of this checkout against those of another
+copy of pcd_tpu_torch/csrc (DIR, e.g. one with one thread an add:
+`git archive c0dd5d2 pcd_tpu_torch/csrc`), each tree's sources built here
+into build/kernel_ab and called through its raw C entry, on chip_smoke.py
+phase 2's inputs (k1_inputs, folded by K1's plain version; pair_inputs
+and madd_inputs); the two outputs must agree limb for limb (K3: each
+tree on its own copy of the accumulators); CUDA events in the order
+other, this, this, other (then each --sweep build); ptxas' registers and
+spills of every build.  Then one add's latency by chains of EC_CHAIN
+dependent adds (kernel_ab_chain.cu: pcd_chain_one, the one-thread body
+before the redesign, and pcd_chain_group, K2's group add built at each
+of CHAIN_GS lanes) at 1 and at EC_CHAINS chains, the chains' results
+equal limb for limb.  --sweep:
+this tree's K2 and K3 built again with each launch shape of EC_SWEEP
+(group sizes, block size, minimum blocks an SM).  K1's and K4's sources of both
+trees are built too, and their ptxas lines must agree.
+
 Prints one line per measurement and a JSON summary as the last line.
 """
 
@@ -102,6 +121,27 @@ SWEEP = {f"minb{b}": [f"-DK1_MINB{d}={b}" for d in (1, 2, 3)]
 RUNSUM = os.path.join(HERE, "kernel_ab_runsum.cu")
 RUNSUM_M = (2, 4, 8, 16)
 CHAIN_GRIDS, CHAIN_N = (1, 132, 264, 400), 32
+# --ec --sweep: this tree's K2 and K3 built again with these launch
+# shapes (csrc/ec_group.cuh K2_SHAPE: lanes an add at D = 1, 2, 3, 0 for
+# one thread through rcb_add, threads, minimum blocks at D = 1, 2;
+# K3_SHAPE: lanes an add, threads, minimum blocks), both in a header that
+# the build pre-includes; each kernel reads only its own
+EC_SWEEP = {
+    "k2g1_k3g2": ("1, 1, 1, 128, 4, 2", "2, 128, 4"),
+    "g3": ("3, 3, 3, 128, 4, 2", "3, 128, 4"),
+    "k2d2g0_g6": ("6, 0, 6, 128, 4, 2", "6, 128, 4"),
+    "k2g1_t96": ("1, 1, 0, 96, 4, 2", "1, 96, 4"),
+    "t64": ("2, 1, 0, 64, 4, 2", "1, 64, 4"),
+    "minb3": ("2, 1, 0, 128, 3, 2", "1, 128, 3"),
+    "minb5": ("2, 1, 0, 128, 5, 2", "1, 128, 5"),
+}
+# the add chains' group sizes (kernel_ab_chain.cu CHAIN_G)
+CHAIN_GS = (1, 2, 3, 6)
+EC_CHAIN, EC_CHAINS = 32, 264 * 128
+# kernels --ec builds in both trees only to compare ptxas' lines: K1 and
+# K4 and the device functions they call are not edited
+UNCHANGED = ("madd_accumulate", "bucket_finish")
+CHAIN_SRC = os.path.join(HERE, "kernel_ab_chain.cu")
 FORMS = (("mnt4_298.G1", "main", "g1", 24), ("mnt4_298.G2", "main", "g2", 24),
          ("mnt6_298.G1", "help", "g1", 4), ("mnt6_298.G2", "help", "g2", 4))
 PROBE = r"""
@@ -321,6 +361,137 @@ def k4_ab(lib, summary):
         print(f"add chain {form}, us per add by blocks of 128: " + ", ".join(
             f"{g}: {v:.2f}" for g, v in chain.items()), flush=True)
         del accs, pts, out
+        torch.cuda.empty_cache()
+
+
+def load_ec(so2, so3, old):
+    """K2's and K3's libraries of one tree: this tree's entries
+    (ops/kernels.py), or with old=True the entries before the redesign
+    (no SmallA argument)."""
+    from pcd_tpu_torch.ops.kernels import load
+
+    if not old:
+        return load(so2, "complete_add"), load(so3, "madd")
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    L2, L3 = ctypes.CDLL(so2), ctypes.CDLL(so3)
+    L2.pcd_complete_add.restype = L3.pcd_madd.restype = ci
+    L2.pcd_complete_add.argtypes = [ci, vp, vp, vp, cl, vp, vp]
+    L3.pcd_madd.argtypes = [ci, vp, vp, vp, vp, cl, vp, vp]
+    return L2, L3
+
+
+def ec_ab(libs, old, chain_sos, summary):
+    """--ec: K2 and K3 of each build in `libs` ({name: (K2 lib, K3 lib)};
+    the names in `old` take the entries before the redesign) in turns on
+    phase 2's inputs, then the add chains ({group size: library}; see the
+    module docstring)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from pcd_tpu_torch.ops.ec import ec_ctx
+
+    dev = torch.device("cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    rng = np.random.default_rng(2026)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    chains = {g: ctypes.CDLL(so) for g, so in chain_sos.items()}
+    for chain in chains.values():
+        chain.pcd_chain_one.restype = chain.pcd_chain_group.restype = ci
+        chain.pcd_chain_one.argtypes = [ci, vp, vp, ci, ci, vp, vp]
+        chain.pcd_chain_group.argtypes = [ci, vp, vp, ci, ci, vp, vp, vp]
+    one = chains[min(chains)]
+    summary["ec_ms"], summary["chain_us_per_add"] = {}, {}
+    order = ["other", "this", "this", "other"] + [
+        n for n in libs if n not in ("other", "this")]
+    for form, cfg, which in cs.form_cases():
+        ec = ec_ctx(getattr(cfg, which))
+        kc = ec.kconsts.ctypes.data_as(ctypes.c_void_p)
+        ks = ec.ksmall.ctypes.data_as(ctypes.c_void_p)
+        table, perm, loads = cs.k1_inputs(ec, cfg, which, rng, dev)
+        acc0 = ec.madd_accumulate_plain(table, perm, loads)
+        P, Q, _ = cs.pair_inputs(ec, acc0)
+        n = P.shape[0]
+        outs = {name: torch.empty_like(P) for name in libs}
+
+        def k2(name):
+            args = (ec.d, P.data_ptr(), Q.data_ptr(), outs[name].data_ptr(),
+                    n, kc) + (() if name in old else (ks,)) + (stream(),)
+            rc = libs[name][0].pcd_complete_add(*args)
+            if rc:
+                raise RuntimeError(f"K2 {name} {form}: CUDA error {rc}")
+
+        jobs = {"K2": k2}
+        if which == "g1":
+            acc, q, sign, active = cs.madd_inputs(
+                ec, table, acc0.reshape(-1, 3, 1, 10), rng)[:4]
+            accs = {name: acc.clone() for name in libs}
+
+            def k3(name):
+                args = (1, accs[name].data_ptr(), q.data_ptr(),
+                        sign.data_ptr(), active.data_ptr(), n, kc) + (
+                    () if name in old else (ks,)) + (stream(),)
+                rc = libs[name][1].pcd_madd(*args)
+                if rc:
+                    raise RuntimeError(f"K3 {name} {form}: CUDA error {rc}")
+
+            jobs["K3"] = k3
+        for kern, fn in jobs.items():
+            for name in libs:
+                fn(name)
+            torch.cuda.synchronize()
+            res = outs if kern == "K2" else accs
+            for name in libs:
+                if not torch.equal(res[name], res["other"]):
+                    raise AssertionError(f"{kern} {form}: {name} != other")
+            times = {}
+            for name in order:
+                times.setdefault(name, []).append(
+                    ms(lambda: fn(name), reps=10))
+            avg = {k: sum(v) / len(v) for k, v in times.items()}
+            summary["ec_ms"][f"{kern} {form}"] = {"turns": times, "ms": avg}
+            print(f"{kern} {form} ({n} rows): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in avg.items()) + "; turns "
+                + json.dumps({k: [round(x, 4) for x in v]
+                              for k, v in times.items()}), flush=True)
+        # one add's latency: chains through both designs, the group add
+        # at each of CHAIN_GS lanes
+        res = {}
+        designs = ["one"] + [f"g{g}" for g in chains]
+        for nch in (1, EC_CHAINS):
+            pts = P[:nch].contiguous()
+            got = {}
+            for design in designs + designs[::-1]:
+                out = torch.empty_like(pts)
+
+                def run(design=design, out=out):
+                    if design == "one":
+                        rc = one.pcd_chain_one(
+                            ec.d, pts.data_ptr(), out.data_ptr(), nch,
+                            EC_CHAIN, kc, stream())
+                    else:
+                        rc = chains[int(design[1:])].pcd_chain_group(
+                            ec.d, pts.data_ptr(), out.data_ptr(), nch,
+                            EC_CHAIN, kc, ks, stream())
+                    if rc:
+                        raise RuntimeError(f"chain {design}: CUDA error "
+                                           f"{rc}")
+
+                t = ms(run, reps=3) * 1e3 / EC_CHAIN
+                res.setdefault(f"{design} x{nch}", []).append(t)
+                got[design] = out
+            for design in designs[1:]:
+                if not torch.equal(got["one"], got[design]):
+                    raise AssertionError(f"chains {form}: {design} != one")
+        P0 = ec.decode_point(P[0].cpu().numpy())
+        if ec.decode_point(got["one"][0].cpu().numpy()) != P0 * (
+                EC_CHAIN + 1):
+            raise AssertionError(f"chain {form}: != (N + 1) P")
+        avg = {k: sum(v) / len(v) for k, v in res.items()}
+        summary["chain_us_per_add"][form] = avg
+        print(f"add chain {form}, us per add (design x chains): " + ", ".join(
+            f"{k}: {v:.3f}" for k, v in avg.items()), flush=True)
+        del table, perm, loads, acc0, P, Q, outs
         torch.cuda.empty_cache()
 
 
@@ -666,12 +837,14 @@ def main(argv):
     quotient = "--quotient" in argv
     sched = "--sched" in argv
     trace = "--trace" in argv
+    ec_mode = "--ec" in argv
     if (other is None and not k4) or (
-            (quotient or sched or trace) and other is None):
+            (quotient or sched or trace or ec_mode) and other is None):
         print(__doc__, file=sys.stderr)
         return 2
     sweep = ("--sweep" in argv and other is not None and not quotient
-             and not sched)
+             and not sched and not ec_mode)
+    ec_sweep = "--sweep" in argv and ec_mode
     sys.path.insert(0, HERE)
     import torch
 
@@ -697,7 +870,8 @@ def main(argv):
     with open(os.path.join(out_dir, "probe.cu"), "w") as fh:
         fh.write(PROBE)
     builds = ({"other": (other, []), "this": (CSRC, [])}
-              if other and not quotient and not sched else {})
+              if other and not quotient and not sched and not ec_mode
+              else {})
     if sweep:
         for name, defs in SWEEP.items():
             builds["this_" + name] = (CSRC, defs)
@@ -723,6 +897,31 @@ def main(argv):
         so = os.path.join(out_dir, "sched_other.so")
         procs["sched_other"] = (nvcc([*NVCC_FLAGS, "-o", so, os.path.join(
             other, "sched_digits.cu")]), so)
+    ec_builds = {}
+    if ec_mode:
+        ec_builds = {"other": (other, []), "this": (CSRC, [])}
+        if ec_sweep:
+            for name, (k2, k3) in EC_SWEEP.items():
+                hdr = os.path.join(out_dir, f"shape_{name}.h")
+                with open(hdr, "w") as fh:
+                    fh.write(f"#define K2_SHAPE {k2}\n#define K3_SHAPE {k3}\n")
+                ec_builds["this_" + name] = (CSRC, ["-include", hdr])
+        for name, (src, defs) in ec_builds.items():
+            for kern in ("complete_add", "madd"):
+                so = os.path.join(out_dir, f"{kern}_{name}.so")
+                procs[f"{kern}_{name}"] = (nvcc([*NVCC_FLAGS, *defs, "-o", so,
+                                                 os.path.join(src, kern
+                                                              + ".cu")]), so)
+        for g in CHAIN_GS:
+            so = os.path.join(out_dir, f"chain_g{g}.so")
+            procs[f"chain_g{g}"] = (nvcc([*NVCC_FLAGS, f"-DCHAIN_G={g}", "-I",
+                                          CSRC, "-o", so, CHAIN_SRC]), so)
+        for tree, src in (("other", other), ("this", CSRC)):
+            for kern in UNCHANGED:
+                so = os.path.join(out_dir, f"{kern}_{tree}_ref.so")
+                procs[f"{kern}_{tree}_ref"] = (nvcc([
+                    *NVCC_FLAGS, "-o", so, os.path.join(src, kern + ".cu")]),
+                    so)
     if k4:
         so = os.path.join(out_dir, "runsum.so")
         procs["runsum"] = (nvcc([*NVCC_FLAGS, "-I", CSRC, "-o", so, RUNSUM]),
@@ -781,7 +980,36 @@ def main(argv):
         for ln in regs:
             print(f"ptxas runsum: {ln}")
         k4_ab(load_runsum(procs["runsum"][1]), summary)
-    if not other or quotient or sched:
+    if ec_mode:
+        libs = {}
+        for name in ec_builds:
+            for kern in ("complete_add", "madd"):
+                regs = [ln.strip() for ln in logs[f"{kern}_{name}"]
+                        .splitlines() if "Compiling" in ln
+                        or "registers" in ln or "spill" in ln]
+                summary["ptxas"][f"{kern}_{name}"] = regs
+                for ln in regs:
+                    print(f"ptxas {kern}_{name}: {ln}")
+            libs[name] = load_ec(procs[f"complete_add_{name}"][1],
+                                 procs[f"madd_{name}"][1], name == "other")
+        for g in CHAIN_GS:
+            for ln in logs[f"chain_g{g}"].splitlines():
+                if "Compiling" in ln or "registers" in ln or "spill" in ln:
+                    print(f"ptxas chain_g{g}: {ln.strip()}")
+        for kern in UNCHANGED:
+            got = [[ln.strip() for ln in logs[f"{kern}_{tree}_ref"]
+                    .splitlines() if "Compiling" in ln or "registers" in ln
+                    or "spill" in ln] for tree in ("other", "this")]
+            summary["ptxas"][kern + "_same"] = got[0] == got[1]
+            print(f"ptxas {kern}: this tree's lines "
+                  f"{'equal' if got[0] == got[1] else 'DIFFER FROM'} the "
+                  f"other's ({len(got[1])} lines)", flush=True)
+            if got[0] != got[1]:
+                raise AssertionError(f"{kern}: ptxas differs from the "
+                                     f"other tree's")
+        ec_ab(libs, {"other"}, {g: procs[f"chain_g{g}"][1] for g in CHAIN_GS},
+              summary)
+    if not other or quotient or sched or ec_mode:
         print(json.dumps(summary))
         return 0
     for tree in ("other", "this"):

@@ -17,9 +17,11 @@ raises for anything else:
                    at msm_stream.py:261-277);
   complete_add     K2, csrc/complete_add.cu: elementwise complete add
                    (replaces ec32.py:411-444; the finish's yardstick,
-                   StreamMSMCtx.finish_steps, still runs on it);
+                   StreamMSMCtx.finish_steps, still runs on it), each add
+                   over a group of lanes at D = 1, 2 (csrc/ec_group.cuh);
   madd             K3, csrc/madd.cu: elementwise masked mixed add, in
-                   place, G1 (replaces ec32.py:527-630);
+                   place, G1 (replaces ec32.py:527-630), only the active
+                   unflagged rows dealt;
   bucket_finish    K4, csrc/bucket_finish.cu: the stream-MSM finish, lane
                    accumulators to window sums in one launch (replaces
                    ec32.py:343-409, 457-513, 915-1012, 1152-1222 with the
@@ -28,8 +30,9 @@ raises for anything else:
 Both formulas are RCB15 (alg. 1 any-a complete add, and its Z2 = 1 mixed
 form) with the operation order of ec32._rcb_add / _rcb_maddT_ns, and the
 curve constants a, 3b and a^2 come from the curve model (per component for
-G2, as ec32._madd_consts).  Each wrapper counts its kernel launches per
-curve (`launch_counts`).
+G2, as ec32._madd_consts); K2 and K3 take a and a^2 as small-integer
+scalings where the curve allows (ECCtx.ksmall, the MNT curves).  Each
+wrapper counts its kernel launches per curve (`launch_counts`).
 """
 
 from __future__ import annotations
@@ -91,8 +94,42 @@ class ECCtx:
         self.kconsts = np.ascontiguousarray(np.concatenate(words),
                                             dtype=np.uint32)
         self._cvals = consts
+        self.ksmall = self._small_a(nr)
         self._cplain = {}
         self._one = {}
+
+    def _small_a(self, nr):
+        """SmallA of csrc/ec_group.cuh (12 u32 words): where a and a^2 are
+        each s u^j, s a small integer (the MNT curves), the per-component
+        scales s (times nr on the wrapped components m < j), j, and mu =
+        floor(2^64 / (p_hi + 1)), p_hi = floor(p / 2^256), with `on` = 1;
+        else all zero, and K2 and K3 take the full products by the
+        FieldConsts' a and a^2 (the toy curves)."""
+        d, p = self.d, self.f.p
+        words = np.zeros(12, dtype=np.uint32)
+        p_hi = p >> 256
+        if p_hi < 1 << 32:                # the quotient estimate needs it
+            return words
+        for slot, nm in enumerate(("a", "a2")):
+            cs = self._cvals[nm]
+            nz = [i for i, c in enumerate(cs) if c]
+            if len(nz) > 1:
+                return np.zeros_like(words)
+            j = nz[0] if nz else 0
+            scales = [cs[j] * (nr if m < j else 1) for m in range(d)]
+            if max(scales) >= 1 << 16:
+                return np.zeros_like(words)
+            words[1 + slot] = j
+            words[3 + 3 * slot:3 + 3 * slot + d] = scales
+        words[0] = 1
+        mu = (1 << 64) // (p_hi + 1)
+        words[10], words[11] = mu & 0xFFFFFFFF, mu >> 32
+        return words
+
+    @property
+    def small_a(self) -> bool:
+        """K2 and K3 scale by a and a^2 instead of multiplying."""
+        return bool(self.ksmall[0])
 
     @property
     def point_words(self) -> int:
@@ -472,7 +509,8 @@ class ECCtx:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib("complete_add").pcd_complete_add(
             self.d, P.data_ptr(), Q.data_ptr(), out.data_ptr(), n,
-            self.kconsts.ctypes.data_as(ctypes.c_void_p), stream)
+            self.kconsts.ctypes.data_as(ctypes.c_void_p),
+            self.ksmall.ctypes.data_as(ctypes.c_void_p), stream)
         if rc != 0:
             raise RuntimeError(f"complete_add launch failed: CUDA error {rc}")
         _LAUNCHES[("complete_add", self.name)] += 1
@@ -510,11 +548,29 @@ class ECCtx:
         rc = lib("madd").pcd_madd(
             self.d, acc.data_ptr(), q.data_ptr(), sign.data_ptr(),
             active.data_ptr(), n, self.kconsts.ctypes.data_as(
+                ctypes.c_void_p), self.ksmall.ctypes.data_as(
                 ctypes.c_void_p), stream)
         if rc != 0:
             raise RuntimeError(f"madd launch failed: CUDA error {rc}")
         _LAUNCHES[("madd", self.name)] += 1
         return acc
+
+    def kernel_info(self, kernel):
+        """The launch geometry and resources of K2 ("complete_add") or K3
+        ("madd") in this context's instantiation, from the built library:
+        group size, threads and minimum blocks a block, resident blocks
+        per SM, registers and local bytes a thread, shared bytes a block,
+        and K3's rows listed at once (0 for K2)."""
+        from .kernels import lib
+
+        out = (ctypes.c_int * 8)()
+        rc = getattr(lib(kernel), f"pcd_{kernel}_info")(
+            self.d, int(self.small_a), out)
+        if rc != 0:
+            raise RuntimeError(f"{kernel} info: CUDA error {rc}")
+        return dict(zip(("group", "threads", "min_blocks", "blocks_per_sm",
+                         "registers", "local_bytes", "smem_bytes", "tile"),
+                        list(out)))
 
 
 @lru_cache(maxsize=None)

@@ -22,7 +22,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh", "rows.cuh")
+HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh", "ec_group.cuh", "rows.cuh")
 SOURCES = {"madd_accumulate": "madd_accumulate.cu",
            "complete_add": "complete_add.cu",
            "madd": "madd.cu",
@@ -100,8 +100,11 @@ ENTRIES = {
     "madd_accumulate": [("pcd_madd_accumulate", _ci,
                          [_ci, _vp, _vp, _vp, _vp, _cl, _ci, _ci, _vp, _vp])],
     "complete_add": [("pcd_complete_add", _ci,
-                      [_ci, _vp, _vp, _vp, _cl, _vp, _vp])],
-    "madd": [("pcd_madd", _ci, [_ci, _vp, _vp, _vp, _vp, _cl, _vp, _vp])],
+                      [_ci, _vp, _vp, _vp, _cl, _vp, _vp, _vp]),
+                     ("pcd_complete_add_info", _ci, [_ci, _ci, _vp])],
+    "madd": [("pcd_madd", _ci,
+              [_ci, _vp, _vp, _vp, _vp, _cl, _vp, _vp, _vp]),
+             ("pcd_madd_info", _ci, [_ci, _ci, _vp])],
     "bucket_finish": [("pcd_bucket_finish", _ci,
                        [_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
                         _ci, _vp, _vp]),

@@ -114,3 +114,203 @@ def test_rcb_madd_matches_plain(form, host_check):
                          torch.ones(N, dtype=torch.int32)).numpy()
     got = _run(host_check, ec, 2, P, q[:, 0], q[:, 1]).reshape(want.shape)
     assert np.array_equal(got, want)
+
+
+# -- K2 and K3 over a group of lanes (csrc/ec_group.cuh) -------------------
+
+@pytest.fixture(scope="module")
+def shapes(host_check):
+    """The kernels' launch shapes as csrc/ec_group.cuh declares them (host
+    op 6): K2's lanes an add by D (0: one thread through rcb_add, held to
+    the plain version above; its group add is then checked at 3 lanes),
+    K3's lanes an add, threads a block and rows listed at once."""
+    out = subprocess.run([host_check], input=np.array(
+        [6, 1, 0], dtype=np.int32).tobytes(), capture_output=True,
+        check=True, timeout=60).stdout
+    v = np.frombuffer(out, dtype=np.int32).tolist()
+    return {"k2_g": {1: v[0], 2: v[1], 3: v[2]}, "k3_g": v[6],
+            "k3_threads": v[7], "k3_tile": v[9]}
+
+
+def _run_grp(exe, ec, op, G, *arrays):
+    """Ops 3-5 of host_check: (small-a form ran, results)."""
+    n = arrays[0].shape[0]
+    req = (np.array([op, ec.d, n], dtype=np.int32).tobytes()
+           + ec.kconsts.tobytes() + np.int32(G).tobytes()
+           + ec.ksmall.tobytes()
+           + np.concatenate([a.reshape(n, -1).view(np.uint32)
+                             for a in arrays], axis=1).tobytes())
+    out = subprocess.run([exe], input=req, capture_output=True, check=True,
+                         timeout=120).stdout
+    res = np.frombuffer(out, dtype=np.uint32).view(np.int32)
+    return bool(res[0]), res[1:]
+
+
+def _add_operands(ec, rng):
+    """P, Q with random coordinates (0, 1 and p - 1 among them), then
+    P = Q, P = -Q, Q the identity, P the identity, both the identity."""
+    P, Q = _elems(ec, rng, (N, 3)), _elems(ec, rng, (N, 3))
+    f = ec.f
+    Q[3:6] = P[3:6]
+    Q[6:9] = P[6:9]
+    Q[6:9, 1] = f.from_plain(f.neg(f.to_plain(torch.from_numpy(
+        np.ascontiguousarray(P[6:9, 1]))))).numpy()
+    ident = ec.identity((3,), "cpu").numpy()
+    Q[9:12], P[12:15] = ident, ident
+    P[15], Q[15] = ident[0], ident[0]
+    return P, Q
+
+
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_grp_add_matches_plain(form, host_check, shapes):
+    """K2's add over a group of as many lanes as its shape gives D equals
+    the plain complete add limb for limb; the real curves run the small-a
+    form, the toy ones the full products."""
+    ec = _ec(form)
+    assert ec.small_a == (form[0] == "mnt_cycle")
+    P, Q = _add_operands(ec, np.random.default_rng(11))
+    want = ec.complete_add_plain(torch.from_numpy(P),
+                                 torch.from_numpy(Q)).numpy()
+    G = shapes["k2_g"][ec.d] or 3
+    ran, got = _run_grp(host_check, ec, 3, G, P, Q)
+    assert ran == ec.small_a
+    assert np.array_equal(got.reshape(want.shape), want)
+
+
+def _madd_operands(ec, rng):
+    """acc, q, sign: random coordinates, acc the identity in some rows,
+    acc = (x : y : 1) with q's sign clear (a doubling) and set (P - P)."""
+    P, q = _elems(ec, rng, (N, 3)), _elems(ec, rng, (N, 2))
+    q[:, 0, 0, NLIMB - 1] &= 0x7FFFFFFF      # no infinity flag
+    P[4:8] = ec.identity((4,), "cpu").numpy()
+    one = ec.identity((1,), "cpu").numpy()[0, 1]
+    P[8:12, :2] = q[8:12]
+    P[8:12, 2] = one
+    sign = rng.integers(0, 2, N).astype(np.int32)
+    sign[8:10], sign[10:12] = 0, 1
+    return P, q, sign
+
+
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_grp_madd_matches_plain(form, host_check, shapes):
+    """K3's mixed add over a group of its shape's lanes, Y negated by the
+    sign, equals the plain masked mixed add limb for limb."""
+    ec = _ec(form)
+    P, q, sign = _madd_operands(ec, np.random.default_rng(12))
+    want = ec.madd_plain(torch.from_numpy(P), torch.from_numpy(q),
+                         torch.from_numpy(sign),
+                         torch.ones(N, dtype=torch.int32)).numpy()
+    ran, got = _run_grp(host_check, ec, 4, shapes["k3_g"], P, q[:, 0],
+                        q[:, 1],
+                        sign.reshape(N, 1))
+    assert ran == ec.small_a
+    assert np.array_equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_mul_a_matches_product(form, host_check):
+    """fe_mul_a against the full Montgomery products by a and by a^2: the
+    scalings by 2 and 4 (MNT4 G1), 11 and 121 (MNT6 G1), (34, 0) and
+    (1156, 0) (MNT4 G2), 11 u^2 and 605 u (MNT6 G2); the products
+    themselves on the toy curves."""
+    ec = _ec(form)
+    f = ec.f
+    t = _elems(ec, np.random.default_rng(13), (N,))
+    ran, got = _run_grp(host_check, ec, 5, 1, t)
+    assert ran == ec.small_a
+    got = got.reshape(N, 2, ec.d, NLIMB)
+    tp = f.to_plain(torch.from_numpy(t)).movedim(-1, 1)
+    A, _, A2 = ec._consts_plain("cpu")
+    for which, c in enumerate((A, A2)):
+        want = f.from_plain(f.mul(c.expand_as(tp), tp).movedim(1, -1))
+        assert np.array_equal(got[:, which], want.numpy()), which
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 6])
+@pytest.mark.parametrize("form", [FORMS[3], FORMS[6]], ids=[IDS[3], IDS[6]])
+def test_grp_sizes_match_plain(form, G, host_check):
+    """Any group size deals the same jobs: both adds at G = 1, 2, 3 and
+    6 (the sweep's sizes)."""
+    ec = _ec(form)
+    rng = np.random.default_rng(14)
+    P, Q = _add_operands(ec, rng)
+    want = ec.complete_add_plain(torch.from_numpy(P),
+                                 torch.from_numpy(Q)).numpy()
+    _, got = _run_grp(host_check, ec, 3, G, P, Q)
+    assert np.array_equal(got.reshape(want.shape), want)
+    A, q, sign = _madd_operands(ec, rng)
+    want = ec.madd_plain(torch.from_numpy(A), torch.from_numpy(q),
+                         torch.from_numpy(sign),
+                         torch.ones(N, dtype=torch.int32)).numpy()
+    _, got = _run_grp(host_check, ec, 4, G, A, q[:, 0], q[:, 1],
+                      sign.reshape(N, 1))
+    assert np.array_equal(got.reshape(want.shape), want)
+
+
+def _deal_k3(live, grid, shapes):
+    """K3's row dealing (csrc/madd.cu madd_kernel), by the kernel's index
+    formulas: block b takes rows [b r, min(n, (b + 1) r)), r = ceil(n /
+    grid); each tile of K3_TILE rows is listed in sweeps of one row a
+    thread, row base + s + t on thread t, its entry at the running length
+    plus the counts of the warps before it plus the live lanes below it
+    in its warp's ballot; the block's group gi takes entries gi, gi +
+    ngrp, ...  Returns [(block, group, row)] and the longest list."""
+    tile, threads = shapes["k3_tile"], shapes["k3_threads"]
+    n = len(live)
+    ngrp = threads // 32 * (32 // shapes["k3_g"])
+    rpb = -(-n // grid)
+    dealt, longest = [], 0
+    for b in range(grid):
+        r0, r1 = b * rpb, min(n, (b + 1) * rpb)
+        for base in range(r0, r1, tile):
+            lst = [None] * tile
+            length = 0
+            for s in range(0, tile, threads):
+                if base + s >= r1:
+                    break
+                rows = base + s + np.arange(threads)
+                lv = np.array([i < r1 and bool(live[i]) for i in rows])
+                ballots = [int(sum(1 << lane for lane in range(32)
+                                   if lv[w * 32 + lane]))
+                           for w in range(threads // 32)]
+                counts = [bin(x).count("1") for x in ballots]
+                for t in np.flatnonzero(lv):
+                    w, lane = divmod(int(t), 32)
+                    at = (length + sum(counts[:w])
+                          + bin(ballots[w] & ((1 << lane) - 1)).count("1"))
+                    assert lst[at] is None
+                    lst[at] = s + int(t)
+                length += sum(counts)
+            longest = max(longest, length)
+            for e in range(length):
+                dealt.append((b, e % ngrp, base + lst[e]))
+    return dealt, longest
+
+
+@pytest.mark.parametrize("case", ["all_active", "none_active", "all_flagged",
+                                  "random", "ragged"])
+def test_madd_deal_rows(case, shapes):
+    """K3 deals every active, unflagged row to exactly one group and no
+    other row, each group's rows in index order, at several grids."""
+    tile = shapes["k3_tile"]
+    rng = np.random.default_rng(15)
+    n = 3 * tile + 77 if case == "ragged" else 2 * tile
+    active = np.ones(n, bool)
+    flagged = np.zeros(n, bool)
+    if case == "none_active":
+        active[:] = False
+    elif case == "all_flagged":
+        flagged[:] = True
+    elif case in ("random", "ragged"):
+        active = rng.random(n) >= 0.25
+        flagged = rng.random(n) < 0.1
+    live = active & ~flagged
+    for grid in (1, 3, 7, -(-n // 40)):
+        dealt, longest = _deal_k3(live, grid, shapes)
+        rows = [r for _, _, r in dealt]
+        assert sorted(rows) == np.flatnonzero(live).tolist(), grid
+        assert longest <= tile
+        per = {}
+        for b, g, r in dealt:
+            per.setdefault((b, g), []).append(r)
+        assert all(v == sorted(v) for v in per.values())

@@ -201,6 +201,123 @@ def test_madd_equals_k1_at_t1(form, cuda_device):
     assert torch.equal(k1.reshape(got.shape), got)
 
 
+SIZES = [1, 31, 127, 129, 204_805]
+MNT_FORMS = [f for f in FORMS if f[0] == "mnt_cycle"]
+MNT_IDS = ["-".join(f) for f in MNT_FORMS]
+
+
+def _rand_elems(ec, shape, rng):
+    """Random Montgomery limbs below p, (*shape, d, 10) int32: the limbs
+    under p's top nonzero limb uniform, that one below it."""
+    top = int(np.flatnonzero(ec.f.p_limbs)[-1])
+    out = rng.integers(0, 1 << 32, tuple(shape) + (ec.d, 10),
+                       dtype=np.uint64)
+    out[..., top] = rng.integers(0, int(ec.f.p_limbs[top]),
+                                 tuple(shape) + (ec.d,), dtype=np.uint64)
+    out[..., top + 1:] = 0
+    return out.astype(np.uint32).view(np.int32)
+
+
+def _ec_of(form):
+    cyc, side, grp = form
+    return ec_ctx(getattr(getattr(getattr(M, cyc)(), side), grp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("form", MNT_FORMS, ids=MNT_IDS)
+def test_complete_add_sizes_match_plain(form, n, cuda_device):
+    """K2 (a group of lanes an add, the small-a form) at sizes around a
+    group, a warp, a block and phase 2's 204,800, with P = Q, P = -Q and
+    identities among random coordinates: one launch, exact."""
+    ec = _ec_of(form)
+    assert ec.small_a
+    rng = np.random.default_rng(n)
+    P = _rand_elems(ec, (n, 3), rng)
+    Q = _rand_elems(ec, (n, 3), rng)
+    k = max(n // 8, 1)
+    Q[:k] = P[:k]
+    P, Q = (torch.from_numpy(x).to(cuda_device) for x in (P, Q))
+    if n > 4 * k:
+        Q[k:2 * k] = P[k:2 * k]
+        Q[k:2 * k, 1] = ec.f.from_plain(ec.f.neg(ec.f.to_plain(
+            P[k:2 * k, 1])))
+        Q[2 * k:3 * k] = ec.identity((k,), cuda_device)
+        P[3 * k:4 * k] = ec.identity((k,), cuda_device)
+    before = launch_counts().get(("complete_add", ec.name), 0)
+    got = ec.add(P, Q)
+    assert launch_counts()[("complete_add", ec.name)] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ec.complete_add_plain(P, Q))
+
+
+MADD_CASES = ["random", "none_active", "all_flagged"]
+
+
+def _madd_rand(ec, n, case, device, rng):
+    """K3 operands of random coordinates: acc, q (flag bits clear but in
+    all_flagged), sign, active (a quarter clear; none in none_active), and
+    a tenth of the accumulators the identity."""
+    acc = _rand_elems(ec, (n, 3), rng)
+    q = _rand_elems(ec, (n, 2), rng)
+    flagged = rng.random(n) < (1.0 if case == "all_flagged" else 0.05)
+    q[flagged, 0, 0, 9] |= np.int32(-(1 << 31))
+    sign = rng.integers(0, 2, n).astype(np.int32)
+    active = (rng.random(n) >= 0.25).astype(np.int32)
+    if case == "none_active":
+        active[:] = 0
+    acc = torch.from_numpy(acc).to(device)
+    acc[:n // 10] = ec.identity((n // 10,), device)
+    return (acc, torch.from_numpy(q).to(device),
+            torch.from_numpy(sign).to(device),
+            torch.from_numpy(active).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MADD_CASES)
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("form", [f for f in MNT_FORMS if f[2] == "g1"],
+                         ids=[i for f, i in zip(MNT_FORMS, MNT_IDS)
+                              if f[2] == "g1"])
+def test_madd_sizes_match_plain(form, n, case, cuda_device):
+    """K3 over groups of lanes, the active unflagged rows dealt per block:
+    exact against its plain version in place, rows it keeps untouched."""
+    ec = _ec_of(form)
+    rng = np.random.default_rng(n + 1)
+    acc, q, sign, active = _madd_rand(ec, n, case, cuda_device, rng)
+    old = acc.clone()
+    want = ec.madd_plain(acc, q, sign, active)
+    got = ec.madd(acc, q, sign, active)
+    torch.cuda.synchronize()
+    assert got is acc
+    assert torch.equal(acc, want)
+    if case != "random":
+        assert torch.equal(acc, old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("form", [f for f in MNT_FORMS if f[2] == "g1"],
+                         ids=[i for f, i in zip(MNT_FORMS, MNT_IDS)
+                              if f[2] == "g1"])
+def test_madd_sizes_equal_k1_at_t1(form, n, cuda_device):
+    """From the identity, K3 and K1 with T = 1 (loads = active) give the
+    same limbs on real table rows, a flagged row among them."""
+    ec, table, _, _, _, _, _ = _madd_inputs(form, cuda_device, n=2, m=64)
+    rng = np.random.default_rng(n + 2)
+    idx = rng.integers(0, 64, n).astype(np.uint32)
+    sign = rng.integers(0, 2, n).astype(np.int32)
+    active = torch.from_numpy((rng.random(n) >= 0.25).astype(np.int32)).to(
+        cuda_device)
+    q = table[torch.from_numpy(idx.astype(np.int64)).to(cuda_device)]
+    got = ec.madd(ec.identity((n,), cuda_device), q.contiguous(),
+                  torch.from_numpy(sign).to(cuda_device), active)
+    perm = (idx | (sign.astype(np.uint32) << 31)).view(np.int32)
+    k1 = ec.madd_accumulate(table, torch.from_numpy(perm.reshape(1, 1, n))
+                            .to(cuda_device), active.reshape(1, n))
+    assert torch.equal(k1.reshape(got.shape), got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cyc", ["toy_cycle", "mnt_cycle"])
 def test_kzg_stream_at_offset_on_card(cyc, cuda_device):
