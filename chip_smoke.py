@@ -2,8 +2,8 @@
 """Drive pcd_tpu_torch on an NVIDIA card and hold its kernels to their
 plain versions.  Run from the root of a checkout with one CUDA card:
 
-    python3 chip_smoke.py                # phases 1-7, 9 and 10
-    python3 chip_smoke.py --phases 1,6   # a subset of 1-4, 6, 7, 9, 10
+    python3 chip_smoke.py                # phases 1-7 and 9-11
+    python3 chip_smoke.py --phases 1,6   # a subset of 1-4, 6, 7, 9-11
     python3 chip_smoke.py --phases 8     # the real Marlin chain (hours)
 
 Phases, one output line each, then a `kernels` JSON line and the final
@@ -31,7 +31,12 @@ status line:
      (the old message against the newest proof must be rejected); every
      kernel instantiation must have launched on that path, K1 exactly
      once per commitment MSM, K4 once per commitment MSM, K2 and K3
-     never;
+     never; the setup under msm_dispatch.KEYGEN's default: K8 on every
+     G1 and G2 form under "device", never under "host";
+     then base case and step 2 once more through PipelinedChainProver
+     (parallel/pipeline.py: the help prove on a worker thread), both
+     verified, the negative check rejected, K1 and K4 once per commitment
+     MSM of its four proves;
      CUDA-event device time of every launch of the warm step, of the
      whole finish (StreamMSMCtx._finish), and of the warm step's finishes
      replayed through K4 and through finish_steps in turns; then six more
@@ -75,7 +80,15 @@ status line:
      against the C++ Pippenger on the same SRS rows; CUDA-event ms of
      every launch of the warm prove, and K1 and K4 again, exactly against
      their plain versions, on the inputs of the warm prove's first
-     round-1 commit and of its open3 MSM;
+     round-1 commit and of its open3 MSM; the AHP's transforms (fft_any,
+     from 16,384 points up) on K5: 9 an index and 8 a prove, each of the
+     index's and the cold prove's equal to the host path's, K5 once a pass
+     and K7 twice a transform; K5's plans of Marlin's domains, each pass
+     of Marlin's ifft and K7's conversions exactly against their plain
+     versions, with CUDA-event ms; on the main side two more warm proves,
+     the transforms on the host and on K5 in one pair of turns, with the
+     three ifft spans and fft_any's encode, transform and decode; the
+     universal setup's K8 launches (one under KEYGEN "device");
   9  the device scheduler (ops/msm_stream_dev.py) at c = 12, L = 8192:
      a 2^18-point MNT4 G1 MSM and a 2^16-point MNT4 G2 MSM, dense and
      low-entropy scalars (digits in two windows only), each equal to the
@@ -108,19 +121,34 @@ status line:
      (utils/profiling.device_trace), each bound also by the count of
      every entry and of r - 1 products at every level.  Without phase 4
      only the first part runs;
+ 11  the device keygen, after phase 9 and before the chains: K8
+     (csrc/fixed_base.cu) on 2^14 scalars of each of the four forms (0, 1,
+     r - 1, all-0xFF low windows, the integers whose top window wraps onto
+     +-T so that the last add doubles or cancels, random ones), exactly
+     against its plain version and, as affine points, against the C++
+     fixed-base, with CUDA-event ms, plain ms, ptxas' lines and the
+     bound by the fewest partial products (K3's small-a mixed add, one
+     batched inversion), the kernel's own count beside it;
+     then msm_dispatch.fb_mul under KEYGEN "host" and "device" in three
+     adjacent pairs of turns (2^18 MNT4 G1 scalars, 2^16 of the others),
+     the same points from both, the device's wall split into digits,
+     upload, kernel, download and point objects, and the verdict:
+     "device" when its fb_mul is shorter in every pair of every form;
   8  (only when asked for alone) the real mnt4_marlin PCD chain through
      the universal setup (reference tests/mnt4_marlin.rs:141-204):
      universal setup, index, base case, step 2, both verified, and the
      negative check.  Hours of host work: never in the default run.
-Phase 1 always runs, phase 9 runs after phase 3, before the chains, and
-phase 10 between phases 4 and 6.  K2's and K3's records come from phase
+Phase 1 always runs, phases 9 and 11 run after phase 3, before the
+chains, and phase 10 between phases 4 and 6.  K8's records come from
+phase 11; their `launches` are the setups' (phases 4, 6 and 7).  K2's and K3's records come from phase
 2; their `launches` sum their launches over the chains run (null when
 none ran).  The P1 kernels' records come from phase 9; their `launches`
 are those of phase 4's device-scheduled warm steps (phase 9's own when
 phase 4 did not run).  K5-K7's records come from phase 10; their `launches`
 are those of a device-quotient warm step of their chain (mnt4_groth16's
 from phase 4, mnt4_gm17's from phase 6; null when it did not run).
-Phases 6 and 7 run msm_dispatch.SCHEDULER's and QUOTIENT's defaults.
+Phases 4, 6 and 7 set up under msm_dispatch.KEYGEN's default, and phases
+6 and 7 run SCHEDULER's and QUOTIENT's.
 Any failure exits non-zero without the final line.  Nothing here imports
 JAX or the JAX package.
 """
@@ -190,6 +218,10 @@ REPLACES = {
     ("spmv_rows", 0): "pcd_tpu/ops/matvec_tensor.py:77",
     ("fp_vec", 0): "pcd_tpu/snark/groth16/native.py:497, "
                    "pcd_tpu/ops/fft_tensor.py:111",
+    # no Pallas site: the XLA program of FixedBaseDevice.mul_digits
+    ("fixed_base_mul", 1): "pcd_tpu/ops/fixed_base.py:63",
+    ("fixed_base_mul", 2): "pcd_tpu/ops/fixed_base.py:63",
+    ("fixed_base_mul", 3): "pcd_tpu/ops/fixed_base.py:63",
 }
 SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "complete_add": "pcd_tpu_torch/csrc/complete_add.cu",
@@ -201,43 +233,24 @@ SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "p1_scatter": "pcd_tpu_torch/csrc/sched_digits.cu",
            "ntt_pass": "pcd_tpu_torch/csrc/ntt.cu",
            "spmv_rows": "pcd_tpu_torch/csrc/spmv.cu",
-           "fp_vec": "pcd_tpu_torch/csrc/fp_vec.cu"}
+           "fp_vec": "pcd_tpu_torch/csrc/fp_vec.cu",
+           "fixed_base_mul": "pcd_tpu_torch/csrc/fixed_base.cu"}
 # phase 4's extra warm steps: the stream-MSM scheduler of each, then the
 # quotient tier of each, in turns of adjacent pairs
 SCHED_TURNS = ("host", "device", "device", "host", "host", "device")
 QUOTIENT_TURNS = ("host", "device", "device", "host", "host", "device",
                   "device", "host", "host", "device")
+# phase 11: K8 on 2^K8_LOG_N scalars a form, then msm_dispatch.fb_mul in
+# KEYGEN_TURNS (three adjacent host/device pairs) on 2^18 MNT4 G1 scalars
+# and 2^16 of each other form
+K8_LOG_N = 14
+KEYGEN_TURNS = ("host", "device", "device", "host", "host", "device")
+KEYGEN_LOG_N = {"mnt4_298.G1": 18, "mnt4_298.G2": 16, "mnt6_298.G1": 16,
+                "mnt6_298.G2": 16}
 
 
 def say(phase, msg):
     print(f"[phase {phase}] {msg}", flush=True)
-
-
-def raw_points(native, base, scalars, bits):
-    """[s * base] through the C++ windowed fixed-base, as the EncodedPoints
-    arrays (xs, ys, inf) without host point objects."""
-    import numpy as np
-
-    curve = base.curve
-    h, deg, _ = native.curve_handle(curve)
-    lib = native._load()
-    NL = native.NL
-    bxy = np.zeros(2 * deg * NL, dtype="<u8")
-    for d, c in enumerate(native._coeffs(base.x, deg)):
-        bxy[d * NL:(d + 1) * NL] = native.ints_to_limbs([c])[0]
-    for d, c in enumerate(native._coeffs(base.y, deg)):
-        bxy[(deg + d) * NL:(deg + d + 1) * NL] = native.ints_to_limbs([c])[0]
-    n = len(scalars)
-    sc = native.ints_to_limbs([int(s) for s in scalars])
-    xs = np.zeros((n, deg * NL), dtype="<u8")
-    ys = np.zeros((n, deg * NL), dtype="<u8")
-    inf = np.zeros(n, dtype=np.uint8)
-    rc = lib.pcd_fixed_base(h, native._u64p(bxy), bits, n, native._u64p(sc),
-                            native._u64p(xs), native._u64p(ys),
-                            native._u8p(inf))
-    if rc != 0:
-        raise RuntimeError("pcd_fixed_base failed")
-    return xs, ys, inf.astype(bool)
 
 
 def sync(dev):
@@ -439,10 +452,11 @@ def finish_inputs(ec, cfg, which, rng, dev, n=1 << 16, c=12, lanes=8192,
     chains' MSMs).  K1 folds the lanes.  Returns (StreamMSMCtx, schedule,
     accs, bidx, runrem)."""
     from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.fixed_base import raw_fixed_base
     from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
 
     curve, gen = getattr(cfg, which), getattr(cfg, which + "_gen")
-    xs, ys, inf = raw_points(native, gen, [int(s) for s in rng.integers(
+    xs, ys, inf = raw_fixed_base(gen, [int(s) for s in rng.integers(
         1, 1 << 62, n)], cfg.Fr.BITS)
     sctx = StreamMSMCtx(curve, cfg.Fr.BITS, c, lanes)
     table = sctx.table_from_limbs(xs, ys, inf, dev)
@@ -557,10 +571,10 @@ def k1_inputs(ec, cfg, which, rng, dev, nwin=25, T=8, L=8192, m=4096):
     import numpy as np
     import torch
 
-    from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.fixed_base import raw_fixed_base
 
     gen = getattr(cfg, which + "_gen")
-    xs, ys, inf = raw_points(native, gen, [int(s) for s in rng.integers(
+    xs, ys, inf = raw_fixed_base(gen, [int(s) for s in rng.integers(
         1, 1 << 62, m)], cfg.Fr.BITS)
     inf[rng.choice(m, 64, replace=False)] = True      # flagged rows
     table = torch.from_numpy(ec.table_from_u64(xs, ys, inf)).to(dev)
@@ -626,19 +640,25 @@ def madd_inputs(ec, table, acc0, rng):
 def own_products(kernel, ec):
     """32x32-bit partial products one add of K2 ("complete_add") or K3
     ("madd") issues in this form: an Fp^D product D (100 D + 110), the nr
-    scalings 10 (D - 1).  The group add (csrc/ec_group.cuh): six (K3:
-    five) products of the inputs, two by 3b, four by a or a^2 (in the
-    small-a form scalings of 20 D: the scaling and its quotient's
-    multiple of p), and X3, Y3, Z3 each D (200 D + 110) + 20 (D - 1).
-    K2's one-thread body (lanes 0): 18 products."""
-    D = ec.d
-    prod = D * (100 * D + 110) + 10 * (D - 1)
+    scalings 10 (D - 1); K2's one-thread body (lanes 0): 18 products,
+    else the group add's count (group_products)."""
     if ec.kernel_info(kernel)["group"] == 0:
-        return 18 * prod
+        return 18 * (ec.d * (100 * ec.d + 110) + 10 * (ec.d - 1))
+    return group_products(ec.d, ec.small_a, 6 if kernel == "complete_add"
+                          else 5)
+
+
+def group_products(D, small_a, inputs):
+    """Partial products of one add of the group add (csrc/ec_group.cuh)
+    over Fp^D: `inputs` (six for the complete add, five for the mixed add)
+    products of the inputs, two by 3b, four by a or a^2 (in the small-a
+    form scalings of 20 D: the scaling and its quotient's multiple of p),
+    and X3, Y3, Z3 each D (200 D + 110) + 20 (D - 1); an Fp^D product is
+    D (100 D + 110) + 10 (D - 1)."""
+    prod = D * (100 * D + 110) + 10 * (D - 1)
     sum2 = D * (200 * D + 110) + 20 * (D - 1)
-    by_a = 4 * 20 * D if ec.small_a else 4 * prod
-    return (6 if kernel == "complete_add" else 5) * prod + 2 * prod \
-        + by_a + 3 * sum2
+    by_a = 4 * 20 * D if small_a else 4 * prod
+    return inputs * prod + 2 * prod + by_a + 3 * sum2
 
 
 def bound_text(rec, adds, own, rcb):
@@ -697,7 +717,7 @@ def record(kernel, form, D, err, ms, plain_ms, nbytes, mads):
 
 
 def encoded(native, curve, xs, ys, inf):
-    """raw_points' arrays as the C++ tier's EncodedPoints (no host point
+    """raw_fixed_base's arrays as the C++ tier's EncodedPoints (no host point
     objects), for native.msm."""
     import numpy as np
 
@@ -708,6 +728,180 @@ def encoded(native, curve, xs, ys, inf):
     return enc
 
 
+def k8_scalars(r, nwin, n, rng):
+    """n scalars for K8's exactness: 0, 1, r - 1, every low byte 0xFF
+    (with and without a top digit), the integers below 2^(8 nwin) whose
+    top window wraps onto +-T[top][d] (the last add doubles or cancels),
+    then random ones below r."""
+    top = 8 * (nwin - 1)
+    low = (1 << top) - 1
+    wraps = [lo + (d << top) for d in range(1, 256)
+             for lo in ((d << top) % r, (-(d << top)) % r) if lo < 1 << top]
+    edge = [0, 1, r - 1, low, low + (1 << top)] + wraps
+    return edge + [rng.randrange(r) for _ in range(n - len(edge))]
+
+
+def fermat_products(d, p):
+    """Fp products of one Fermat inversion in Fp^D: z^(p - 2)'s squarings
+    and products, and at D = 2 / 3 the 4 / 12 Fp products of the norm and
+    the conjugates."""
+    e = p - 2
+    return e.bit_length() - 1 + bin(e).count("1") - 1 + {1: 0, 2: 4, 3: 12}[d]
+
+
+def k8_products(ec, p, n, nonzero):
+    """32 x 32-bit partial products of one K8 launch, two ways.  "own":
+    what the kernel issues, a mixed add of 17 Fp^D products (RCB) a
+    nonzero digit and, per scalar, a Fermat inversion, x Z^-1 and y Z^-1,
+    and the 2 D products by 1 out of Montgomery form.  "least": the same
+    function at the fewest products this repo knows for it, the mixed add
+    of K3's group add (group_products) where that is fewer, and
+    the affine conversion as one batched inversion (3 Fp^D products a
+    scalar and one Fermat inversion a launch) before the same x, y
+    products and conversion out of Montgomery form."""
+    d = ec.d
+    tail = 2 * PRODUCTS[d] + 2 * d * PRODUCTS[1]
+    own = nonzero * MULS_MADD * PRODUCTS[d] + n * (
+        fermat_products(d, p) * PRODUCTS[1] + tail)
+    add = min(MULS_MADD * PRODUCTS[d], group_products(d, ec.small_a, 5))
+    least = nonzero * add + n * (3 * PRODUCTS[d] + tail) \
+        + fermat_products(d, p) * PRODUCTS[1]
+    return {"own": own, "least": least}
+
+
+def phase_keygen(results, dev="cuda", phase=11):
+    """The device keygen (ops/fixed_base.py, K8): on the four forms, K8
+    exactly against its plain version and, as affine points, against the
+    C++ fixed-base on 2^K8_LOG_N scalars (k8_scalars), with CUDA-event
+    ms, bound and plain ms; then msm_dispatch.fb_mul under KEYGEN "host"
+    and "device" in KEYGEN_TURNS on KEYGEN_LOG_N scalars a form, the
+    device's wall split into digits, upload, kernel, download and point
+    objects, and the verdict: "device" when its fb_mul is shorter in every
+    pair of every form.  Appends K8's records; returns them by form and
+    the verdict."""
+    import numpy as np
+    import torch
+
+    from pcd_tpu_torch.ops import kernels
+    from pcd_tpu_torch.ops.field import NLIMB
+    from pcd_tpu_torch.ops.fixed_base import fixed_base_device, raw_fixed_base
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.utils import profiling
+
+    dev = torch.device(dev)
+    rng = random.Random(11)
+    log = kernels.BUILD_INFO.get("fixed_base", {}).get("ptxas", "")
+    recs = {}
+    for form, cfg, grp in form_cases():
+        curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
+        r, bits = cfg.Fr.MODULUS, cfg.Fr.BITS
+        t0 = time.perf_counter()
+        fb = fixed_base_device(curve, gen, bits)
+        fb.table(dev)
+        t_tbl = time.perf_counter() - t0
+        d, n = fb.ec.d, 1 << K8_LOG_N
+        sc = k8_scalars(r, fb.nwin, n, rng)
+        digits = torch.from_numpy(fb.digits_from_ints(sc)).to(dev)
+        out = fb.mul_digits(digits)
+        sync(dev)
+        want, plain_ms = timed_plain(lambda: fb.mul_digits_plain(digits),
+                                     dev)
+        if not torch.equal(out, want):
+            raise AssertionError(f"K8 {form}: kernel != plain")
+        # as affine points against the C++ tier's fixed-base of s mod r
+        xs, ys, inf = raw_fixed_base(gen, [s % r for s in sc], bits)
+        got = np.ascontiguousarray(out.cpu().numpy()).view(np.uint32)
+        ginf = (got[:, 0, 0, NLIMB - 1] >> 31).astype(bool)
+        got[:, 0, 0, NLIMB - 1] &= 0x7FFFFFFF
+        got = got.reshape(n, 2, -1).view("<u8")
+        if not (np.array_equal(ginf, inf) and np.array_equal(
+                got[~inf, 0], xs[~inf]) and np.array_equal(
+                got[~inf, 1], ys[~inf]) and not got[inf].any()):
+            raise AssertionError(f"K8 {form}: != the C++ fixed-base")
+        ms = device_ms(lambda: fb.mul_digits(digits), 5, dev)
+        nonzero = int((digits != 0).sum())
+        prods = k8_products(fb.ec, curve.F.prime_subfield().MODULUS, n,
+                            nonzero)
+        nbytes = digits.numel() + out.numel() * 4 + fb.table_host.nbytes
+        rec = record("fixed_base_mul", form, d, 0, ms, plain_ms, nbytes,
+                     2 * prods["least"])
+        own_ms = 2 * prods["own"] / INT32_MAD_PER_S * 1e3
+        results.append(rec)
+        recs[form] = rec
+        say(phase, f"K8 fixed_base_mul {form}: {n} scalars ({fb.nwin} "
+                   f"windows, {nonzero} nonzero digits, {int(inf.sum())} "
+                   f"identities; 0, 1, r - 1, 0xFF low windows and the top "
+                   f"window's wraps) exact against plain and == the C++ "
+                   f"fixed-base "
+                   f"as affine points; {ms:.4f} ms, bound "
+                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                   f"{rec['bound_ms'] / ms:.1%}; partial products: least "
+                   f"{prods['least']}, the kernel's own {prods['own']}, "
+                   f"which bound at {own_ms:.4f} ms, {own_ms / ms:.1%}), "
+                   f"plain {plain_ms:.0f} ms; table {t_tbl:.2f}s; ptxas: "
+                   + ptxas_lines(log, f"fixed_base_kernelILi{d}E"))
+    # fb_mul in turns: KEYGEN's verdict, from the scalars to host points
+    default = msm_dispatch.KEYGEN
+    shorter, summary = [], {}
+    try:
+        for form, cfg, grp in form_cases():
+            n = 1 << KEYGEN_LOG_N[form]
+            r, bits = cfg.Fr.MODULUS, cfg.Fr.BITS
+            sc = [rng.randrange(r) for _ in range(n)]
+            walls = {"host": [], "device": []}
+            first = {}
+            profiling.reset()
+            profiling.enable()
+            for tier in KEYGEN_TURNS:
+                msm_dispatch.KEYGEN = tier
+                t0 = time.perf_counter()
+                pts = msm_dispatch.fb_mul(cfg, grp, sc, bits, dev)
+                walls[tier].append(time.perf_counter() - t0)
+                if tier not in first:
+                    first[tier] = pts
+                del pts
+            profiling.enable(False)
+            tot = profiling.totals()
+            parts = {part: sum(v[0] for k, v in tot.items()
+                               if k.endswith(f"fixed_base/{part}"))
+                     for part in ("digits", "upload", "kernel", "download",
+                                  "points")}
+            if first["host"] != first["device"]:
+                raise AssertionError(f"fb_mul {form}: the tiers' points "
+                                     f"differ")
+            first.clear()
+            pairs = [KEYGEN_TURNS[i:i + 2]
+                     for i in range(0, len(KEYGEN_TURNS), 2)]
+            it = {"host": iter(walls["host"]), "device": iter(walls["device"])}
+            wins = 0
+            for pair in pairs:
+                t = {k: next(it[k]) for k in pair}
+                wins += t["device"] < t["host"]
+            shorter.append(wins == len(pairs))
+            summary[form] = {k: [round(v, 4) for v in w]
+                             for k, w in walls.items()}
+            say(phase, f"fb_mul {form} on 2^{KEYGEN_LOG_N[form]} scalars, "
+                       f"turns {'/'.join(KEYGEN_TURNS)}: host "
+                       f"{summary[form]['host']} s, device "
+                       f"{summary[form]['device']} s (same points); device "
+                       f"shorter in {wins} of {len(pairs)} pairs; device "
+                       f"parts (spans), mean s: " + json.dumps(
+                           {k: round(v / len(walls["device"]), 4)
+                            for k, v in parts.items()}))
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+        msm_dispatch.KEYGEN = default
+    verdict = "device" if all(shorter) else "host"
+    say(phase, f"KEYGEN verdict: device shorter in every pair on "
+               f"{sum(shorter)} of {len(shorter)} forms: {verdict!r}; "
+               f"default {default!r}")
+    if verdict != default:
+        say(phase, f"note: the verdict {verdict!r} is not "
+                   f"msm_dispatch.KEYGEN's default {default!r}")
+    return recs, verdict
+
+
 def phase_msm(dev="cuda", log_n=18):
     """2^18 MNT4 G1 stream MSM against the C++ Pippenger."""
     import numpy as np
@@ -715,6 +909,7 @@ def phase_msm(dev="cuda", log_n=18):
 
     from pcd_tpu_torch import native
     from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops.fixed_base import raw_fixed_base
     from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
 
     dev = torch.device(dev)
@@ -723,7 +918,7 @@ def phase_msm(dev="cuda", log_n=18):
     rng = np.random.default_rng(18)
     r = cfg.Fr.MODULUS
     t0 = time.perf_counter()
-    xs, ys, inf = raw_points(native, cfg.g1_gen, [int(s) for s in
+    xs, ys, inf = raw_fixed_base(cfg.g1_gen, [int(s) for s in
                                                   rng.integers(1, 1 << 62, n)],
                              cfg.Fr.BITS)
     scal = [int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)]
@@ -873,6 +1068,7 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     from pcd_tpu_torch import native
     from pcd_tpu_torch.curves import models as M
     from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.ops.fixed_base import raw_fixed_base
     from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
     from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS, DevSchedMSM
 
@@ -886,7 +1082,7 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     for grp, log in (("g1", log_n), ("g2", log_n2)):
         curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
         n = 1 << log
-        xs, ys, inf = raw_points(native, gen, [int(s) for s in rng.integers(
+        xs, ys, inf = raw_fixed_base(gen, [int(s) for s in rng.integers(
             1, 1 << 62, n)], cfg.Fr.BITS)
         enc = encoded(native, curve, xs, ys, inf)
         sctx = StreamMSMCtx(curve, cfg.Fr.BITS)
@@ -1022,7 +1218,8 @@ class LaunchProbe:
         self.last = {}       # the same for the latest call (not K3's)
         self.finishes = []   # (StreamMSMCtx, args) of every finish
         self.firsts = []     # the first of them per curve
-        self.events = []     # ((kernel or "finish", curve name), start, end)
+        self.events = []     # ((kernel or "finish", curve name), start, end,
+                             #  host seconds from start's record to end's)
 
     def _timed(self, key, fn, *args, on=None):
         import torch
@@ -1031,10 +1228,11 @@ class LaunchProbe:
             return fn(*args)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         a.record()
         out = fn(*args)
         b.record()
-        self.events.append((key, a, b))
+        self.events.append((key, a, b, time.perf_counter() - t0))
         return out
 
     def __enter__(self):
@@ -1135,20 +1333,94 @@ class LaunchProbe:
         if self.events:
             torch.cuda.synchronize()
         out = {}
-        for key, a, b in self.events:
+        for key, a, b, _ in self.events:
             out[key] = out.get(key, 0.0) + a.elapsed_time(b)
         return out
 
+    def brackets(self):
+        """{(kernel, curve name): [launches, summed CUDA-event ms, the
+        longest one's ms, summed host ms between each pair's records]}:
+        where the events' sum far exceeds the kernel's time alone, the host
+        ms say whether the card waited for the host inside the brackets
+        (host ms near the events') or for other streams' work (host ms
+        small)."""
+        import torch
 
-def check_once_per_msm(counts, forms, what):
-    """K1 and K4 of every form exactly once per commitment MSM of one
-    prove of each side, K2 and K3 never; each P1 kernel once per schedule
-    (P1_PER_PROVE a prove of each side) under the device scheduler, never
-    under the host one."""
+        if self.events:
+            torch.cuda.synchronize()
+        out = {}
+        for key, a, b, host in self.events:
+            ms = a.elapsed_time(b)
+            row = out.setdefault(key, [0, 0.0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += ms
+            row[2] = max(row[2], ms)
+            row[3] += host * 1e3
+        return out
+
+
+def check_keygen_launches(counts, cyc, dev, what):
+    """K8's launches in a setup by form: on every G1 and G2 form of the
+    cycle under KEYGEN "device" on a card (each side's query vectors are
+    at least KEYGEN_MIN scalars), on none under "host"; else
+    AssertionError."""
+    from pcd_tpu_torch.snark import msm_dispatch
+
+    got = {f: v for (k, f), v in sorted(counts.items())
+           if k == "fixed_base_mul"}
+    want = set()
+    if msm_dispatch.KEYGEN == "device" and msm_dispatch.on_card(
+            dev):
+        want = {c.name for cfg in (cyc.main, cyc.help)
+                for c in (cfg.g1, cfg.g2)}
+    if set(got) != want:
+        raise AssertionError(f"{what}: K8 launched on {sorted(got)} under "
+                             f"KEYGEN {msm_dispatch.KEYGEN!r}, expected "
+                             f"{sorted(want)}")
+    return got
+
+
+def pipelined_chain(pcd, pk, vk, pred, forms, counter, dev, phase):
+    """Base case and step 2 through PipelinedChainProver (parallel/
+    pipeline.py: the help prove on a worker thread, both provers on the
+    card): both proofs verify, the old message against the newest proof
+    is rejected, and K1 and K4 run once per commitment MSM of the two
+    steps' four proves."""
+    from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.parallel.pipeline import PipelinedChainProver
+
+    F = pcd.ic.main_field
+    one, two = F.from_int(1), F.from_int(2)
+    ec.reset_launch_counts()
+    t0 = time.perf_counter()
+    proofs = PipelinedChainProver(pcd, pred, pk).prove_chain(
+        [one, two], [one, one], b"chip smoke pipeline")
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = counter()
+    ok = (pcd.verify(vk, pred, one, proofs[0]),
+          pcd.verify(vk, pred, two, proofs[1]))
+    if not all(ok):
+        raise AssertionError(f"pipelined chain proofs do not verify {ok}")
+    if pcd.verify(vk, pred, one, proofs[1]):
+        raise AssertionError("pipelined chain: negative check accepted an "
+                             "old message")
+    check_once_per_msm(counts, forms, "the pipelined chain", proves=2)
+    say(phase, f"pipelined chain (PipelinedChainProver, help stage on a "
+               f"worker thread): base case and step 2 in {secs:.1f}s, both "
+               f"verify, negative check rejects, K1 and K4 once per "
+               f"commitment MSM of its four proves")
+
+
+def check_once_per_msm(counts, forms, what, proves=1):
+    """K1 and K4 of every form exactly once per commitment MSM of
+    `proves` proves of each side, K2 and K3 never; each P1 kernel once per
+    schedule (P1_PER_PROVE a prove of each side) under the device
+    scheduler, never under the host one."""
     from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
 
-    want = (P1_PER_PROVE * len(forms) // 2
+    want = (proves * P1_PER_PROVE * len(forms) // 2
             if msm_dispatch.SCHEDULER == "device" else 0)
     for k in P1_KERNELS:
         got = sum(v for (kk, _), v in counts.items() if kk == k)
@@ -1157,7 +1429,7 @@ def check_once_per_msm(counts, forms, what):
                                  f"the {msm_dispatch.SCHEDULER!r} scheduler,"
                                  f" expected {want}")
     for f, grp, kind in forms:
-        want = K1_PER_PROVE[kind][grp]
+        want = proves * K1_PER_PROVE[kind][grp]
         for k in ("madd_accumulate", "bucket_finish"):
             if counts.get((k, f), 0) != want:
                 raise AssertionError(f"{what}: {k}[{f}] launched "
@@ -1427,8 +1699,11 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     F = pcd.ic.main_field
     pred = counter_predicate(F)
     rng = ChaChaRng(b"chip smoke " + name.encode())
+    ec.reset_launch_counts()                       # the setup starts
     pk, vk = pcd.circuit_specific_setup(pred, rng)
     secs["setup"] = time.perf_counter() - t0
+    keygen = check_keygen_launches(counter(), pcd.ic.cycle, dev,
+                                   f"{name}'s setup")
     one, two = F.from_int(1), F.from_int(2)
     ec.reset_launch_counts()                       # the main path starts
     t0 = time.perf_counter()
@@ -1471,6 +1746,8 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
                + f"; base and step 2 verify, negative check rejects; "
                  f"z sizes main {sizes[0]} help {sizes[1]}")
     say(phase, "setup and base-case spans (s): " + json.dumps(early))
+    say(phase, f"setup under KEYGEN {msm_dispatch.KEYGEN!r}: K8 launches "
+               + json.dumps(keygen))
     say(phase, "warm step spans (s): " + json.dumps(spans))
     say(phase, "launches (base + step 2): " + json.dumps(
         {f"{k}[{f}]": v for (k, f), v in sorted(counts.items())}))
@@ -1512,8 +1789,10 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     # the host; K2 no longer runs on the path
     check_once_per_msm(base_counts, forms, "the base case")
     check_once_per_msm(step2, forms, "the warm step")
-    took = {"sched": None, "trace": None, "chain": (pcd, pk)}
+    took = {"sched": None, "trace": None, "chain": (pcd, pk),
+            "keygen": keygen}
     if turns:
+        pipelined_chain(pcd, pk, vk, pred, forms, counter, dev, phase)
         took["sched"] = knob_turns("SCHEDULER", pcd, pk, vk, pred, proof_1,
                                    rng, forms, counter, dev, phase,
                                    SCHED_TURNS)
@@ -2066,11 +2345,181 @@ class KZGProbe:
         return out
 
 
-def marlin_stage(what, calls, before, after, form, stream_min, most):
+class FftProbe:
+    """While on, wraps snark/marlin/ahp.fft_any: records the size of each
+    transform it ran on the device (those that counted in
+    ahp.DEVICE_FFTS) and, while `check`, holds each one's values to the
+    host path's on the same input.  A domain's first device transform
+    builds its FFTTensorCtx first, apart: the K7 launches of its tables
+    are counted as `setup`, not as the transform's.  Leaving the `with`
+    restores it."""
+
+    def __init__(self, counter):
+        self.sizes, self.setup, self.check = [], {}, True
+        self.counter = counter
+
+    def __enter__(self):
+        from pcd_tpu_torch.ops.fft_tensor import fft_ctx
+        from pcd_tpu_torch.snark.marlin import ahp
+
+        self._orig = ahp.fft_any
+
+        def probed(F, vec, size, direction, coset=False, device=None):
+            if size >= ahp._DEVICE_FFT_THRESHOLD \
+                    and ahp.on_card(device):
+                b = self.counter()
+                fft_ctx(F, size, device)
+                for k, v in self.counter().items():
+                    if v != b.get(k, 0):
+                        self.setup[k] = self.setup.get(k, 0) + v - b.get(k, 0)
+            before = sum(ahp.DEVICE_FFTS.values())
+            out = self._orig(F, vec, size, direction, coset, device)
+            if sum(ahp.DEVICE_FFTS.values()) > before:
+                self.sizes.append(size)
+                if self.check and out != self._orig(F, vec, size, direction,
+                                                    coset):
+                    raise AssertionError(f"fft_any {F.NAME} n={size} "
+                                         f"{direction}: device != host")
+            return out
+
+        ahp.fft_any = probed
+        return self
+
+    def __exit__(self, *exc):
+        from pcd_tpu_torch.snark.marlin import ahp
+
+        ahp.fft_any = self._orig
+
+    def take(self):
+        """(sizes, setup launches) since the last take."""
+        out = (self.sizes, self.setup)
+        self.sizes, self.setup = [], {}
+        return out
+
+
+def marlin_k5(results, F, sizes, dev, phase):
+    """K5 on the domains of Marlin's transforms (fft_any's ifft: K7 to
+    Montgomery form, the passes with n^-1 in the last one's stores, K7
+    back): each domain's plan, each pass and K7's conversions exactly
+    against their plain versions, the whole ifft against the plain one,
+    CUDA-event ms, bound and plain ms.  Appends one ntt_pass record a
+    domain and returns them by size."""
+    import torch
+
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, ntt_tile
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    recs = {}
+    for n in sorted(set(sizes)):
+        fctx = fft_ctx(F, n, dev)
+        f = fctx.f
+        a = rand_elems((1, n), F.MODULUS, dev, gen)
+        src, perm, last = a, fctx.perm, len(fctx.passes) - 1
+        for i, ps in enumerate(fctx.passes):
+            post = fctx.n_inv if i == last else None
+            got = fctx.ntt_pass(src, fctx.tbl_inv, perm, ps, post=post)
+            if not torch.equal(got, fctx.ntt_pass_plain(
+                    src, fctx.tbl_inv, perm, ps, None, None, post)):
+                raise AssertionError(f"K5 {F.NAME} n={n} Marlin ifft pass "
+                                     f"{i}: kernel != plain")
+            src, perm = got, None
+        for op in ("to_mont", "from_mont"):
+            b = f.const(f.r * f.r if op == "to_mont" else 1, dev)
+            if not torch.equal(getattr(f, op)(a), f.vmul_plain(a, b)):
+                raise AssertionError(f"K7 {F.NAME} {op}: kernel != plain")
+        want, plain_ms = timed_plain(lambda: plain_transform(
+            fctx, a, fctx.tbl_inv, post=fctx.n_inv), dev)
+        if not torch.equal(fctx.ifft(a), want):
+            raise AssertionError(f"K5 {F.NAME} n={n}: ifft != plain")
+        ms = device_ms(lambda: fctx.ifft(a), 5, dev)
+        prods = sum(n // 2 if r == 2 else n * (r - 1)
+                    for r, _ in fctx.levels) + n       # + the n^-1 stores
+        form = f"{F.NAME} n={n} x1, Marlin's ifft"
+        rec = record("ntt_pass", form, 0, 0, ms, plain_ms, 3 * n * 40 + n * 4,
+                     PRODUCTS[1] * 2 * prods)
+        results.append(rec)
+        recs[n] = rec
+        say(phase, f"K5 ntt_pass {form}, tile {ntt_tile(n)} points: passes "
+                   + "; ".join(f"M {ps.M} Q {ps.Q} C {ps.C} radixes "
+                               f"{[r for r, *_ in ps.levels]}"
+                               for ps in fctx.passes)
+            + f"; every pass of the ifft (the last with the n^-1 "
+              f"epilogue) and K7's to_mont and from_mont exact against "
+              f"plain; {ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%}), plain "
+              f"{plain_ms:.0f} ms")
+    return recs
+
+
+# phase 7's warm proves in turns on the main side: the AHP's transforms on
+# the host ("host": no device) or on K5 ("device"); one pair, as the route
+# is the reference's threshold's and the turns decide no setting
+MARLIN_TURNS = ("host", "device")
+MARLIN_IFFT_SPANS = ("marlin/round1/r1/ifft_mz", "marlin/round2/r2/ifft_r",
+                     "marlin/round3/r3/ifft_f")
+
+
+def marlin_turns(snark, pk, circ, rng, dev, phase):
+    """Warm proves in MARLIN_TURNS: the three ifft spans, the whole prove,
+    and under "device" fft_any's encode, transform and decode apart (their
+    spans); 8 device transforms a device turn, none a host turn."""
+    from pcd_tpu_torch.snark.marlin import ahp
+    from pcd_tpu_torch.utils import profiling
+
+    rows = {"host": [], "device": []}
+    try:
+        for tier in MARLIN_TURNS:
+            snark.ahp.device = dev if tier == "device" else None
+            ahp.DEVICE_FFTS.clear()
+            profiling.reset()
+            profiling.enable()
+            t0 = time.perf_counter()
+            snark.prove(pk, circ, rng)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            profiling.enable(False)
+            tot = profiling.totals()
+            n = sum(ahp.DEVICE_FFTS.values())
+            if n != (8 if tier == "device" else 0):
+                raise AssertionError(f"Marlin {tier} turn: {n} device "
+                                     f"transforms")
+            row = {"prove": wall}
+            for k in MARLIN_IFFT_SPANS:
+                row[k.rsplit("/", 1)[1]] = tot.get(k, (0.0,))[0]
+            for part in ("encode", "transform", "decode"):
+                row[part] = sum(v[0] for k, v in tot.items()
+                                if k.endswith(f"fft_any/{part}"))
+            rows[tier].append(row)
+    finally:
+        snark.ahp.device = dev
+    med = {t: {k: [round(sorted(r[k] for r in rs)[len(rs) // 2], 4),
+                   round(min(r[k] for r in rs), 4),
+                   round(max(r[k] for r in rs), 4)] for k in rs[0]}
+           for t, rs in rows.items()}
+    pairs = list(zip(*[iter(MARLIN_TURNS)] * 2))
+    order = {"host": iter(rows["host"]), "device": iter(rows["device"])}
+    wins = 0
+    for pair in pairs:
+        got = {t: next(order[t])["prove"] for t in pair}
+        wins += got["device"] < got["host"]
+    say(phase, f"Marlin warm proves in turns {'/'.join(MARLIN_TURNS)}, "
+               f"medians [median, min, max] (s): " + json.dumps(med)
+        + f"; the device transforms' prove shorter in {wins} of "
+          f"{len(pairs)} pairs")
+
+
+def marlin_stage(what, calls, before, after, form, stream_min, most,
+                 ffts=None):
     """Hold one stage's launches to its KZG MSMs: K1 and K4 of `form` once
     per stream MSM (and each P1 kernel under the device scheduler), each
-    of at least stream_min scalars, the host MSMs all below it, no other
-    launch.  Returns the number of stream MSMs."""
+    of at least stream_min scalars, the host MSMs all below it; and, with
+    ffts = (Fr, sizes of the AHP's device transforms, device), K5 once a
+    pass and K7 twice (to and from Montgomery form) for each of those
+    transforms, besides the set-up launches of their contexts (the
+    fourth item of ffts); no other launch.  Returns the number of stream
+    MSMs."""
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx
     from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
 
@@ -2085,6 +2534,20 @@ def marlin_stage(what, calls, before, after, form, stream_min, most):
                              f"most {most} expected")
     delta = {k: v - before.get(k, 0) for k, v in after.items()
              if v != before.get(k, 0)}
+    if ffts is not None:
+        F, sizes, dev, setup = ffts
+        for k, v in setup.items():
+            delta[k] = delta.get(k, 0) - v
+            if not delta[k]:
+                del delta[k]
+        got = (delta.pop(("ntt_pass", F.NAME), 0),
+               delta.pop(("fp_vec", F.NAME), 0))
+        want = (sum(len(fft_ctx(F, n, dev).passes) for n in sizes),
+                2 * len(sizes))
+        if got != want:
+            raise AssertionError(f"{what}: K5 and K7 launches {got} for "
+                                 f"{len(sizes)} device transforms, expected "
+                                 f"{want}")
     p1 = {k: sum(delta.pop(kk) for kk in list(delta) if kk[0] == k)
           for k in P1_KERNELS}
     each = len(streamed) if msm_dispatch.SCHEDULER == "device" else 0
@@ -2105,9 +2568,13 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
     """The Marlin SNARK on both curves of the cycle (see the module
     docstring, phase 7).  Appends the K1 and K4 records of the warm prove's
     first round-1 commit ("@marlin") and of its open3 MSM
-    ("@marlin-open3"), their launches those of the warm prove."""
+    ("@marlin-open3"), their launches those of the warm prove, and K5's
+    on Marlin's domains.  Returns the universal setups' K8 launches by
+    form."""
     from pcd_tpu_torch.curves import models as M
     from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.snark.marlin import ahp
     from pcd_tpu_torch.snark.marlin.kzg import KZG10
     from pcd_tpu_torch.snark.marlin.native import MarlinBound, MarlinSNARK
     from pcd_tpu_torch.snark.msm_dispatch import host_query, msm_any, subrange
@@ -2116,6 +2583,7 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
 
     cyc = M.mnt_cycle()
     stream_min = KZG10.STREAM_MIN
+    keygens = {}
     for side, cfg in (("main", cyc.main), ("help", cyc.help)):
         form = cfg.g1.name
         snark = MarlinSNARK(cfg, dev)                  # None: the card
@@ -2131,28 +2599,49 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
         profiling.reset()
         profiling.enable()
         ec.reset_launch_counts()                   # the Marlin path starts
-        with KZGProbe() as kp:
+        fft_dev = ahp.on_card(dev_)       # the card (rehearsals:
+        with KZGProbe() as kp, \
+                FftProbe(counter) as fp:          # patched for the CPU)
             t0 = time.perf_counter()
             need = snark.circuit_degree(circ)
             srs = snark.universal_setup(MarlinBound(need), rng)
             secs["setup"] = time.perf_counter() - t0
             before = counter()
+            keygen = {f: v for (k, f), v in before.items()
+                      if k == "fixed_base_mul"}
+            want = {form: 1} if msm_dispatch.KEYGEN == "device" \
+                and msm_dispatch.on_card(dev_) else {}
+            if keygen != want:
+                raise AssertionError(f"Marlin {side}'s universal setup: K8 "
+                                     f"launches {keygen}, expected {want}")
+            keygens.update(keygen)
             t0 = time.perf_counter()
             pk, vk = snark.index(srs, circ, rng)
             sync(dev_)
             secs["index"] = time.perf_counter() - t0
-            stages["index"] = marlin_stage("index", kp.take(), before,
-                                           counter(), form, stream_min, 9)
+            idx = pk.index
+            # every transform of the index and the prove is at least the
+            # device threshold here: all on K5 on the card
+            big = min(idx.n, idx.k_size) >= ahp._DEVICE_FFT_THRESHOLD
+            want = (9, 8) if fft_dev and big else (0, 0)
+            ffts, setup = {}, {}
+            ffts["index"], setup["index"] = fp.take()
+            stages["index"] = marlin_stage(
+                "index", kp.take(), before, counter(), form, stream_min, 9,
+                (Fr, ffts["index"], dev_, setup["index"]))
             before = counter()
             t0 = time.perf_counter()
             proof_1 = snark.prove(pk, circ, rng)
             sync(dev_)
             secs["prove_cold"] = time.perf_counter() - t0
+            ffts["prove_cold"], setup["prove_cold"] = fp.take()
             stages["prove_cold"] = marlin_stage(
                 "cold prove", kp.take(), before, counter(), form,
-                stream_min, 20)
+                stream_min, 20, (Fr, ffts["prove_cold"], dev_,
+                                 setup["prove_cold"]))
             spans_cold = profiling.totals()
             profiling.reset()
+            fp.check = False                       # the warm prove: timed
             ec.reset_launch_counts()               # the warm prove starts
             with LaunchProbe() as probe:
                 probe.on = True
@@ -2162,8 +2651,19 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
                 secs["prove_warm"] = time.perf_counter() - t0
                 probe.on = False
             warm = counter()                       # the warm prove ended
+            ffts["prove_warm"], setup["prove_warm"] = fp.take()
+            if setup["prove_warm"]:
+                raise AssertionError(f"Marlin {side}: the warm prove built "
+                                     f"a transform context")
             stages["prove_warm"] = marlin_stage(
-                "warm prove", kp.take(), {}, warm, form, stream_min, 20)
+                "warm prove", kp.take(), {}, warm, form, stream_min, 20,
+                (Fr, ffts["prove_warm"], dev_, {}))
+            got = tuple(len(ffts[k]) for k in ("index", "prove_cold"))
+            if got != want or len(ffts["prove_warm"]) != want[1]:
+                raise AssertionError(f"Marlin {side}: device transforms "
+                                     f"{ {k: len(v) for k, v in ffts.items()} }"
+                                     f", expected {want[0]} an index and "
+                                     f"{want[1]} a prove")
             spans = {k: round(v[0], 3) for k, v in profiling.totals().items()
                      if v[0] >= 0.05}
             profiling.enable(False)
@@ -2213,6 +2713,17 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
                      f"{off} == C++ Pippenger")
         say(phase, f"stream MSMs (K1 and K4 once each, STREAM_MIN "
                    f"{stream_min}): " + json.dumps(stages))
+        say(phase, f"universal setup under KEYGEN {msm_dispatch.KEYGEN!r}: "
+                   f"K8 launches {json.dumps(keygen)}; the AHP's transforms "
+                   f"on K5 (each held to the host path's values in the "
+                   f"index and the cold prove): "
+                   + json.dumps({k: len(v) for k, v in ffts.items()}))
+        if ffts["prove_warm"]:
+            for rec in marlin_k5(results, Fr, ffts["index"]
+                                 + ffts["prove_warm"], dev_, phase).values():
+                rec["launches"] = warm.get(("ntt_pass", Fr.NAME), 0)
+            if side == "main":
+                marlin_turns(snark, pk, circ, rng, dev_, phase)
         say(phase, "cold prove spans (s): " + json.dumps(
             {k: round(v[0], 3) for k, v in spans_cold.items()
              if v[0] >= 0.05}))
@@ -2224,6 +2735,12 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
                                  for (k, f), v in sorted(kern.items())})
             + f"; all kernels {sum(kern.values()):.1f} ms of the "
               f"{secs['prove_warm'] * 1e3:.0f} ms prove")
+        say(phase, "the warm prove's event brackets [launches, event ms, "
+                   "longest event ms, host ms between the records]: "
+            + json.dumps({f"{k}[{f}]": [n, round(ev, 3), round(top, 3),
+                                        round(host, 3)]
+                          for (k, f), (n, ev, top, host)
+                          in sorted(probe.brackets().items())}))
         if not stages["prove_warm"]:
             continue
         # K1 and K4 on the first round-1 commit's and open3's inputs
@@ -2234,6 +2751,7 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
         phase_path(results, open3, warm, "marlin-open3", phase,
                    "the warm prove's open3 MSM's inputs")
         probe.finishes.clear()
+    return keygens
 
 
 class ProbeInputs:
@@ -2303,13 +2821,13 @@ def phase_marlin_chain(dev=None, phase=8):
 
 
 def main(argv):
-    phases = {1, 2, 3, 4, 6, 7, 9, 10}
+    phases = {1, 2, 3, 4, 6, 7, 9, 10, 11}
     if "--phases" in argv:
         asked = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
         if asked - phases - {8} or (8 in asked and asked - {1, 8}):
             print(f"chip_smoke: phases to choose: 1, 2, 3, 4, 6, 7, 9, 10, "
-                  f"or 8 alone (5 runs with 4 and 6); asked {sorted(asked)}",
-                  file=sys.stderr)
+                  f"11, or 8 alone (5 runs with 4 and 6); asked "
+                  f"{sorted(asked)}", file=sys.stderr)
             return 2
         phases = asked | {1}
     if not os.path.isdir(os.path.join(HERE, "pcd_tpu_torch")):
@@ -2333,7 +2851,13 @@ def main(argv):
         t0 = time.perf_counter()
         phase_devsched(results)
         say(9, f"device scheduler: {time.perf_counter() - t0:.1f}s")
+    k8 = {}
+    if 11 in phases:               # before the chains, whose setups run K8
+        t0 = time.perf_counter()
+        k8, _ = phase_keygen(results)
+        say(11, f"device keygen: {time.perf_counter() - t0:.1f}s")
     chain_counts, quot_counts, took4, pend = [], {}, None, []
+    keygens = {}                   # K8 launches of the setups, by form
     for ph in sorted(set(CHAINS) & phases | ({10} & phases),
                      key=lambda ph: 4.5 if ph == 10 else ph):
         if ph == 10:               # after phase 4: its pk and warm step
@@ -2346,6 +2870,8 @@ def main(argv):
             counts, probe, took = phase_chain(name, ph, turns=ph == 4)
             chain_counts.append(counts)
             quot_counts[name] = took["quot_counts"]
+            for f, v in took["keygen"].items():
+                keygens[f] = keygens.get(f, 0) + v
             if took["sched"] is not None:   # P1 on the path
                 took4 = took
                 for rec in results:
@@ -2361,11 +2887,15 @@ def main(argv):
             v for (k, f), v in got.items() if k == kernel and f == field)
     if 7 in phases:
         t0 = time.perf_counter()
-        phase_marlin(results)
+        for f, v in phase_marlin(results).items():
+            keygens[f] = keygens.get(f, 0) + v
         say(7, f"Marlin on both curves: {time.perf_counter() - t0:.1f}s "
                f"with its kernel checks")
     if 8 in phases:
         phase_marlin_chain()
+    ran = chain_counts or 7 in phases
+    for form, rec in k8.items():   # K8's launches in the setups run
+        rec["launches"] = keygens.get(form, 0) if ran else None
     for rec in k3:                 # K2's, K3's launches on the chains run
         kernel, form = rec["name"][:-1].split("[")
         rec["launches"] = (sum(c.get((kernel, form), 0)

@@ -238,3 +238,67 @@ PCD_FN void fe_load_const(Fe<D>& r, const uint32_t src[3][NL]) {
 #pragma unroll
     for (int l = 0; l < NL; ++l) r.c[i][l] = src[i][l];
 }
+
+// Inversion (K8's affine conversion).  Fermat: a^(p-2) by square and
+// multiply from the exponent's top bit, every thread on the same bits (no
+// divergence); a = 0 gives 0.  The exponent p - 2 comes from k.p, so one
+// body serves every field.  r must not alias a.
+PCD_FN void fp_inv(uint32_t r[NL], const uint32_t a[NL],
+                   const FieldConsts& k) {
+  uint32_t e[NL];
+  e[0] = sub_cc(k.p[0], 2u);
+#pragma unroll
+  for (int i = 1; i < NL; ++i) e[i] = subc_cc(k.p[i], 0u);
+  int top = 32 * NL - 1;
+  while (!((e[top >> 5] >> (top & 31)) & 1u)) --top;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) r[l] = a[l];
+  for (int i = top - 1; i >= 0; --i) {
+    fp_mul(r, r, r, k);
+    if ((e[i >> 5] >> (i & 31)) & 1u) fp_mul(r, r, a, k);
+  }
+}
+
+// Fp^D inverse through the norm to Fp: at D = 2 a^-1 = conj(a) / N(a),
+// N(a) = a0^2 - nr a1^2; at D = 3 the adjugate (A, B, C) = a^s a^(s^2) (s
+// the Frobenius) with A = a0^2 - nr a1 a2, B = nr a2^2 - a0 a1, C = a1^2 -
+// a0 a2, and N(a) = a0 A + nr (a2 B + a1 C), one fp_mul_sum as ext_mul
+// sums a component (the nr a_i scaled, not reduced).  One Fermat
+// inversion in Fp either way.  The plain version is FieldCtx.inv_plain
+// (ops/field.py).  r must not alias a.
+template <int D>
+PCD_FN void fe_inv(Fe<D>& r, const Fe<D>& a, const FieldConsts& k) {
+  if constexpr (D == 1) {
+    fp_inv(r.c[0], a.c[0], k);
+  } else if constexpr (D == 2) {
+    uint32_t s1[NL], u[NL], v[NL], ni[NL];
+    fp_scale_small(s1, a.c[1], k.nr);
+    fp_mul(u, a.c[0], a.c[0], k);
+    fp_mul(v, s1, a.c[1], k);
+    fp_sub(u, u, v, k.p);                     // N(a)
+    fp_inv(ni, u, k);
+    fp_mul(r.c[0], a.c[0], ni, k);
+    fp_mul(v, a.c[1], ni, k);
+    const uint32_t zero[NL] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+    fp_sub(r.c[1], zero, v, k.p);
+  } else {
+    uint32_t s[3][NL], adj[3][NL], u[NL], v[NL], ni[NL];
+    fp_scale_small(s[1], a.c[2], k.nr);       // x = (a0, nr a2, nr a1)
+    fp_scale_small(s[2], a.c[1], k.nr);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s[0][l] = a.c[0][l];
+    fp_mul(u, a.c[0], a.c[0], k);
+    fp_mul(v, s[2], a.c[2], k);
+    fp_sub(adj[0], u, v, k.p);                // A
+    fp_mul(u, s[1], a.c[2], k);
+    fp_mul(v, a.c[0], a.c[1], k);
+    fp_sub(adj[1], u, v, k.p);                // B
+    fp_mul(u, a.c[1], a.c[1], k);
+    fp_mul(v, a.c[0], a.c[2], k);
+    fp_sub(adj[2], u, v, k.p);                // C
+    fp_mul_sum<3>(u, s, adj, k);              // N(a)
+    fp_inv(ni, u, k);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fp_mul(r.c[i], adj[i], ni, k);
+  }
+}

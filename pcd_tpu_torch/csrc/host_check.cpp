@@ -17,6 +17,11 @@
 //   op 5  fe_mul_a  t (D x 10)              -> a t, a^2 t (2 x D x 10)
 //   op 6  the kernels' launch shapes (D, n and the rest ignored): K2S's
 //         six fields, K3S's three and K3_TILE, int32
+//   op 7  fe_inv    a (D x 10)              -> D x 10
+//   op 8  pt_store_affine P (3 x D x 10)    -> 2 x D x 10 (canonical)
+//   op 9  fb_point, K8's body: after the FieldConsts an int32 nwin and the
+//         window table (nwin x 256 x 2 x D x 10), then n records of nwin
+//         digit bytes                       -> 2 x D x 10
 // Ops 3-5 run the small-a form where SmallA.on is set (else the full
 // products by a and a^2) and each lane's round in turn over one slots
 // array, as the kernels' lanes run them between their syncs.
@@ -94,6 +99,40 @@ static void run(int op, const FieldConsts& k, int n, FILE* in, FILE* out) {
   }
 }
 
+template <int D>
+static void run_k8(int op, const FieldConsts& k, int n, FILE* in,
+                   FILE* out) {
+  const int F = D * NL, P = 3 * D * NL;
+  int32_t nwin = 0;
+  std::vector<uint32_t> tbl;
+  if (op == 9) {
+    if (fread(&nwin, 4, 1, in) != 1 || nwin <= 0) return;
+    tbl.resize((size_t)nwin * 256 * 2 * F);
+    if (fread(tbl.data(), 4, tbl.size(), in) != tbl.size()) return;
+  }
+  const int w_in = op == 7 ? 4 * F : op == 8 ? 4 * P : nwin;
+  std::vector<uint8_t> buf(w_in);
+  std::vector<uint32_t> res(2 * F);
+  for (int i = 0; i < n; ++i) {
+    if (fread(buf.data(), 1, w_in, in) != (size_t)w_in) return;
+    if (op == 7) {
+      Fe<D> a, r;
+      std::copy(buf.begin(), buf.end(), reinterpret_cast<uint8_t*>(&a));
+      fe_inv<D>(r, a, k);
+      fwrite(&r.c[0][0], 4, F, out);
+      continue;
+    }
+    if (op == 8) {
+      Pt<D> A;
+      std::copy(buf.begin(), buf.end(), reinterpret_cast<uint8_t*>(&A));
+      pt_store_affine<D>(res.data(), A, k);
+    } else {
+      fb_point<D>(res.data(), tbl.data(), buf.data(), 1, nwin, k);
+    }
+    fwrite(res.data(), 4, 2 * F, out);
+  }
+}
+
 template <int D, int G>
 static void run_grp_any(int op, const FieldConsts& k, const SmallA& sa,
                         int n, FILE* in, FILE* out) {
@@ -128,7 +167,15 @@ int main() {
   }
   if (fread(&k, sizeof k, 1, stdin) != 1) return 2;
   const int op = hdr[0], D = hdr[1], n = hdr[2];
-  if (op < 0 || op > 5 || D < 1 || D > 3) return 2;
+  if (op < 0 || op > 9 || D < 1 || D > 3) return 2;
+  if (op >= 7) {
+    switch (D) {
+      case 1: run_k8<1>(op, k, n, stdin, stdout); break;
+      case 2: run_k8<2>(op, k, n, stdin, stdout); break;
+      default: run_k8<3>(op, k, n, stdin, stdout); break;
+    }
+    return 0;
+  }
   if (op >= 3) {
     int32_t G;
     SmallA sa;

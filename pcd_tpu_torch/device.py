@@ -16,3 +16,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_card(device) -> bool:
+    """Whether `device` is a card: the device tiers (the fixed-base keygen,
+    Marlin's device transforms) run there only."""
+    return device is not None and torch.device(device).type == "cuda"

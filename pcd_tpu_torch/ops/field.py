@@ -203,6 +203,53 @@ class FieldCtx:
             out.append(T)
         return self.redc(torch.stack(out, dim=1))
 
+    # -- plain inversion: K8's affine conversion (csrc/field.cuh fe_inv) ----
+    def _pmul(self, a, b):
+        """Prime-field product of (nd, ...) plain digits (any d)."""
+        return self.redc(wide(a, b))
+
+    def pow_plain(self, a, e: int):
+        """a^e in Fp (e >= 1) of (nd, ...) plain digits: square and
+        multiply from the top bit, as fp_inv runs it."""
+        acc = a
+        for bit in bin(e)[3:]:
+            acc = self._pmul(acc, acc)
+            if bit == "1":
+                acc = self._pmul(acc, a)
+        return acc
+
+    def inv_plain(self, a):
+        """Fp^d inverse of (nd, d, ...) plain digits, 0 -> 0: Fermat's
+        a^(p - 2) in Fp, at d = 2, 3 through the norm (conj(a) / N(a), and
+        the adjugate (A, B, C) / N(a)), the formulas of fe_inv."""
+        e, pm = self.p - 2, self._pmul
+        if self.d == 1:
+            return self.pow_plain(a, e)
+        nr = self.plain_const([self.nr], a.device).reshape(
+            (self.nd,) + (1,) * (a.dim() - 2))
+        if self.d == 2:
+            a0, a1 = a[:, 0], a[:, 1]
+            ni = self.pow_plain(self.sub(pm(a0, a0), pm(pm(a1, nr), a1)), e)
+            return torch.stack([pm(a0, ni), self.neg(pm(a1, ni))], dim=1)
+        a0, a1, a2 = a[:, 0], a[:, 1], a[:, 2]
+        s1, s2 = pm(a1, nr), pm(a2, nr)
+        adj = (self.sub(pm(a0, a0), pm(s1, a2)),
+               self.sub(pm(s2, a2), pm(a0, a1)),
+               self.sub(pm(a1, a1), pm(a0, a2)))
+        ni = self.pow_plain(self.add(self.add(pm(a0, adj[0]), pm(s2, adj[1])),
+                                     pm(s1, adj[2])), e)
+        return torch.stack([pm(c, ni) for c in adj], dim=1)
+
+    def canonical_plain(self, a) -> torch.Tensor:
+        """(nd, ...) plain digits of x R' -> (..., 10) int32 limbs of x
+        (a product by the integer 1)."""
+        one = torch.zeros((self.nd,) + (1,) * (a.dim() - 1),
+                          dtype=torch.int64, device=a.device)
+        one[0] = 1
+        d = self._pmul(a, one)
+        return from_digits(torch.cat([d, d.new_zeros(
+            (ND - self.nd,) + tuple(d.shape[1:]))]))
+
     def plain_const(self, vals, device) -> torch.Tensor:
         """One element's d canonical components -> (nd, d, 1) digits of
         its plain x R' form."""

@@ -1,8 +1,10 @@
 """GM17 native prover/verifier of the port: a copy of
 `pcd_tpu/snark/gm17/native.py` (which replaces ark-gm17, reference
 Cargo.toml:40; used at tests/mnt4_gm17.rs:27-30 and the mixed configs)
-without its legacy device tier (device keygen, the device h-poly, the
-`backend` knob).
+without its legacy device tier (the device h-poly, the `backend` knob).
+Its setup's query vectors go through msm_dispatch.fb_mul, on the tier
+msm_dispatch.KEYGEN names: K8 on `device`'s card, or the C++ fixed-base
+(the reference's fb_mul).
 
 Construction (GM17-shaped; design re-derived in the Groth16 tradition —
 the reference's exact CRS cannot be byte-verified here, and interchange-
@@ -189,20 +191,27 @@ class GM17:
             h_scalars.append(cur)
             cur = cur * s % p
 
-        # the C++ windowed fixed-base, as the port's Groth16 keygen
-        g1g, g2g, bits = self.cfg.g1_gen, self.cfg.g2_gen, self.Fr.BITS
+        # the query vectors through fb_mul (KEYGEN's tier: K8 on the card,
+        # or the C++ fixed-base), as the port's Groth16 keygen; the
+        # instance-sized query and the three-scalar key elements, always
+        # under KEYGEN_MIN, stay on the host's fixed_base_many
+        from ..msm_dispatch import fb_mul
+
+        cfg, dev = self.cfg, self.device
+        g1g, g2g, bits = cfg.g1_gen, cfg.g2_gen, self.Fr.BITS
         with span("gm17_setup/fb_g1"):
             query = fixed_base_many(
                 g1g, [(2 * alpha * a_of[i] + c_of[i]) % p * gamma_inv % p
                       for i in range(n_inst)], bits)
-            c_query = fixed_base_many(
-                g1g, [(2 * alpha * a_of[i] + c_of[i]) % p * delta_inv % p
-                      for i in range(n_inst, num_sap_vars)], bits)
-            a_query = fixed_base_many(g1g, a_of, bits)
+            c_query = fb_mul(
+                cfg, "g1", [(2 * alpha * a_of[i] + c_of[i]) % p * delta_inv
+                            % p for i in range(n_inst, num_sap_vars)],
+                bits, dev)
+            a_query = fb_mul(cfg, "g1", a_of, bits, dev)
         with span("gm17_setup/fb_g2"):
-            b_query = fixed_base_many(g2g, a_of, bits)
+            b_query = fb_mul(cfg, "g2", a_of, bits, dev)
         with span("gm17_setup/fb_h"):
-            h_query = fixed_base_many(g1g, h_scalars, bits)
+            h_query = fb_mul(cfg, "g1", h_scalars, bits, dev)
         small1 = fixed_base_many(g1g, [alpha, gamma, delta], bits)
         small2 = fixed_base_many(g2g, [alpha, gamma, delta], bits)
 

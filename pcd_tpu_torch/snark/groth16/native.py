@@ -1,8 +1,10 @@
 """Groth16 native prover/verifier of the port: a copy of
 `pcd_tpu/snark/groth16/native.py` (which replaces ark-groth16, reference
 Cargo.toml:39; used as MainSNARK/HelpSNARK in tests/mnt4_groth16.rs:26-29)
-without its legacy device tier (device keygen, device h-poly,
-DevicePointVec queries).
+without its legacy device tier (device h-poly, DevicePointVec queries).
+Its setup's query vectors go through msm_dispatch.fb_mul, on the tier
+msm_dispatch.KEYGEN names: K8 on `device`'s card, or the C++ fixed-base
+(the reference's `_fb_mul` and its host keygen).
 
 Standard Groth16 over the QAP of the R1CS:
   - domain H of size >= num_constraints + num_instance; the instance
@@ -237,19 +239,25 @@ class Groth16:
             cur = cur * tau % p
 
         from ...msm.host import fixed_base_many
+        from ..msm_dispatch import fb_mul
 
-        g1g, g2g, bits = self.cfg.g1_gen, self.cfg.g2_gen, self.Fr.BITS
+        # the query vectors through fb_mul (KEYGEN's tier: K8 on the card,
+        # or the C++ fixed-base); the instance-sized gamma_abc and the
+        # three-scalar key elements, always under KEYGEN_MIN, stay on the
+        # host's fixed_base_many
+        cfg, dev = self.cfg, self.device
+        g1g, g2g, bits = cfg.g1_gen, cfg.g2_gen, self.Fr.BITS
         gamma_abc = fixed_base_many(
             g1g, [(beta * u[i] + alpha * v[i] + w[i]) % p
                   * gamma_inv % p for i in range(n_inst)], bits)
-        l_query = fixed_base_many(
-            g1g, [(beta * u[i] + alpha * v[i] + w[i]) % p
-                  * delta_inv % p for i in range(n_inst, num_vars)],
-            bits)
-        a_query = fixed_base_many(g1g, u, bits)
-        b_g1_query = fixed_base_many(g1g, v, bits)
-        b_g2_query = fixed_base_many(g2g, v, bits)
-        h_query = fixed_base_many(g1g, h_scalars, bits)
+        l_query = fb_mul(
+            cfg, "g1", [(beta * u[i] + alpha * v[i] + w[i]) % p
+                        * delta_inv % p for i in range(n_inst, num_vars)],
+            bits, dev)
+        a_query = fb_mul(cfg, "g1", u, bits, dev)
+        b_g1_query = fb_mul(cfg, "g1", v, bits, dev)
+        b_g2_query = fb_mul(cfg, "g2", v, bits, dev)
+        h_query = fb_mul(cfg, "g1", h_scalars, bits, dev)
         alpha_g1, beta_g1, delta_g1 = fixed_base_many(
             g1g, [alpha, beta, delta], bits)
         beta_g2, gamma_g2, delta_g2 = fixed_base_many(

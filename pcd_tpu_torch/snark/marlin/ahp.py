@@ -20,27 +20,66 @@ Verifier identities (checked at random beta_1 / beta_3 via KZG openings):
 Host-int implementation, field-generic; heavy polynomial products use
 FFT multiplication over smooth domains.
 
-The port's copy of `pcd_tpu/snark/marlin/ahp.py` without the device FFT
-(`_device_fft_ok` and the JAX branches of `fft_any` and `poly_mul_fft`,
-which ran pcd_tpu/ops/fft_tensor.py): transforms always take the host
-mixed-radix and C++ NTT paths, as pcd_tpu does on the CPU.
+The port's copy of `pcd_tpu/snark/marlin/ahp.py`.  `fft_any` keeps the
+reference's size dispatch: a transform of _DEVICE_FFT_THRESHOLD points or
+more on a card goes to the device NTT (ops/fft_tensor.py, K5 `ntt_pass`),
+every other one to the host mixed-radix and C++ NTT paths.  The card is
+the prover's: MarlinSNARK hands its device to AHP, and an AHP without
+one (or on the CPU) stays on the host, as pcd_tpu does on the CPU.
+`poly_mul_fft` has no device branch: the reference takes one only where
+the C++ tier is absent, and the port always has it.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass, field
 
+import numpy as np
+import torch
+
+from ...device import on_card
 from ...poly.domain import EvaluationDomain, batch_inverse, poly_eval
 from ...utils.profiling import span
 
 
-def fft_any(F, coeffs_or_evals, size: int, direction: str, coset: bool = False):
-    """Host mixed-radix transform of a zero-padded vector."""
-    dom = EvaluationDomain(F, size)
+_DEVICE_FFT_THRESHOLD = 16384
+# device transforms fft_any ran, by (direction, coset), since the last
+# clear (chip_smoke.py counts them per index and per prove)
+DEVICE_FFTS: Counter = Counter()
+
+
+def fft_any(F, coeffs_or_evals, size: int, direction: str, coset: bool = False,
+            device=None):
+    """Size-dispatching transform of a zero-padded vector: the host
+    mixed-radix below _DEVICE_FFT_THRESHOLD points or off the card, else
+    the device NTT on `device`.  There the canonical ints go up as limbs,
+    K7 takes them to Montgomery form, K5 runs the transform and its
+    scaling, K7 takes them back, and the limbs come down as ints."""
     vec = list(coeffs_or_evals) + [0] * (size - len(coeffs_or_evals))
-    if direction == "fft":
-        return dom.coset_fft(vec) if coset else dom.fft(vec)
-    return dom.coset_ifft(vec) if coset else dom.ifft(vec)
+    if size < _DEVICE_FFT_THRESHOLD or not on_card(device):
+        dom = EvaluationDomain(F, size)
+        if direction == "fft":
+            return dom.coset_fft(vec) if coset else dom.fft(vec)
+        return dom.coset_ifft(vec) if coset else dom.ifft(vec)
+    from ...ops.fft_tensor import fft_ctx
+    from ...ops.field import ints_to_limbs, limbs_to_ints
+
+    fctx = fft_ctx(F, size, device)
+    f, p = fctx.f, F.MODULUS
+    with span("fft_any/encode"):
+        a = f.to_mont(torch.from_numpy(ints_to_limbs(
+            [int(v) % p for v in vec]).view(np.int32)).to(device))
+    with span("fft_any/transform"):
+        if direction == "fft":
+            out = fctx.coset_fft(a) if coset else fctx.fft(a)
+        else:
+            out = fctx.coset_ifft(a) if coset else fctx.ifft(a)
+        out = f.from_mont(out)
+    with span("fft_any/decode"):
+        res = limbs_to_ints(out.cpu().numpy())
+    DEVICE_FFTS[(direction, coset)] += 1
+    return res
 
 
 def poly_mul_fft(F, a, b):
@@ -139,9 +178,12 @@ class AHPIndex:
 
 
 class AHP:
-    def __init__(self, F):
+    def __init__(self, F, device=None):
+        """device: where fft_any's large transforms run (a card), None for
+        the host."""
         self.F = F
         self.p = F.MODULUS
+        self.device = device
 
     # -- indexer ---------------------------------------------------------
     def index_dims(self, cs_rows, num_instance: int, num_vars: int,
@@ -220,9 +262,12 @@ class AHP:
             # so that sigma_3 = r(alpha, beta_1) exactly)
             val_e = [v * Hel[c] % p * ninv % p for (_, c, v) in entries]
             mats[name] = MatrixArith(
-                row=fft_any(self.F, row_e, K.n, "ifft"),
-                col=fft_any(self.F, col_e, K.n, "ifft"),
-                val=fft_any(self.F, val_e, K.n, "ifft"),
+                row=fft_any(self.F, row_e, K.n, "ifft",
+                            device=self.device),
+                col=fft_any(self.F, col_e, K.n, "ifft",
+                            device=self.device),
+                val=fft_any(self.F, val_e, K.n, "ifft",
+                            device=self.device),
                 row_evals=row_e, col_evals=col_e, val_evals=val_e)
             raw[name] = entries
         return AHPIndex(n=n, k_size=K.n, input_size=hx,
@@ -255,7 +300,8 @@ class AHP:
         p = self.p
         H = self.domain(index.n)
         zfull = self.z_on_H(index, z)
-        z_coeffs = fft_any(self.F, zfull, H.n, "ifft")
+        z_coeffs = fft_any(self.F, zfull, H.n, "ifft",
+                           device=self.device)
         xhat = self.x_poly(index, z[: index.num_instance])
         diff = poly_add(z_coeffs, poly_scale(xhat, p - 1, p), p)
         # divide by v_Hx = X^hx - 1
@@ -316,7 +362,8 @@ class AHP:
                                 for c, co in row[mi].items()) % p
                 evs[name] = mz
         with span("r1/ifft_mz"):
-            zh = {name: fft_any(self.F, evs[name], H.n, "ifft")
+            zh = {name: fft_any(self.F, evs[name], H.n, "ifft",
+                                 device=self.device)
                   for name in "ABC"}
         with span("r1/z_parts"):
             xhat, what = self.z_poly_parts(index, z)
@@ -403,7 +450,8 @@ class AHP:
         # q1 -= r(alpha,X) * zhat(X): compute r*zhat in evaluation form on a
         # larger domain
         with span("r2/ifft_r"):
-            r_coeffs = fft_any(self.F, r_evals, H.n, "ifft")
+            r_coeffs = fft_any(self.F, r_evals, H.n, "ifft",
+                               device=self.device)
         zhat = poly_add(polys["_xhat"],
                         poly_mul_fft(self.F,
                                      [p - 1] + [0] * (index.input_size - 1) + [1],
@@ -450,7 +498,8 @@ class AHP:
                 f = [a_ev[i] * binv[i] % p for i in range(K.n)]
             sigma_m = sum(f) % p
             with span("r3/ifft_f"):
-                f_coeffs = fft_any(self.F, f, K.n, "ifft")
+                f_coeffs = fft_any(self.F, f, K.n, "ifft",
+                                   device=self.device)
             assert f_coeffs[0] == sigma_m * kinv % p
             g_m = f_coeffs[1:]
             # h_M: a_M - b_M (X g_M + sigma_M/|K|) = h_M v_K  (product form)

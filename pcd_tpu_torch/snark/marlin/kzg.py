@@ -106,8 +106,8 @@ class KZG10:
         for _ in range(max_degree + 1):
             tau_pows.append(cur)
             cur = cur * tau % p
-        powers = fb_mul(self.cfg, "g1", tau_pows, self.Fr.BITS)
-        tau_h = fb_mul(self.cfg, "g2", [tau], self.Fr.BITS)[0]
+        powers = fb_mul(self.cfg, "g1", tau_pows, self.Fr.BITS, self.device)
+        tau_h = fb_mul(self.cfg, "g2", [tau], self.Fr.BITS, self.device)[0]
         return KZGSRS(powers_g1=powers, shifted_g1={},
                       h=self.cfg.g2_gen, tau_h=tau_h,
                       max_degree=max_degree)

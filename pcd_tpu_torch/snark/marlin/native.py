@@ -15,8 +15,10 @@ bit-packing, challenges are squeezed as 128-bit integers.
 
 The port's copy of `pcd_tpu/snark/marlin/native.py`: the prover's KZG10
 runs its MSMs of KZG10.STREAM_MIN scalars and more on `device` (the
-card's kernels, or their plain versions on the CPU); the `backend` knob
-is dropped.  A ChaChaRng in the same state yields the same proof.
+card's kernels, or their plain versions on the CPU), and its AHP runs
+the index's and the rounds' large transforms there (ahp.fft_any, K5 on a
+card); the `backend` knob is dropped.  A ChaChaRng in the same state
+yields the same proof.
 """
 
 from __future__ import annotations
@@ -86,13 +88,14 @@ _B3_POLYS = (["row_%s" % m for m in "ABC"] + ["col_%s" % m for m in "ABC"]
 
 class MarlinSNARK:
     def __init__(self, curve_cfg, device=None):
-        """device: where KZG10's stream MSMs run (None means the card)."""
+        """device: where KZG10's stream MSMs and the AHP's large
+        transforms run (None means the card)."""
         self.cfg = curve_cfg
         self.Fr = curve_cfg.Fr
         self.FS_field = curve_cfg.Fq   # sponge field = verifier-circuit field
-        self.ahp = AHP(curve_cfg.Fr)
         self.kzg = KZG10(curve_cfg, device)
         self.device = self.kzg.device
+        self.ahp = AHP(curve_cfg.Fr, self.device)
 
     # -- transcript helpers ----------------------------------------------
     def _sponge(self):

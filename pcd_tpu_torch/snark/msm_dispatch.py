@@ -1,10 +1,17 @@
 """MSM helpers shared by the port's Groth16, GM17 and KZG10 provers: the
 counterpart of `pcd_tpu/snark/msm_dispatch.py`, keeping its host-table
 marshalling, the host halves of `fb_mul` and `msm_any`, `subrange` and
-its stream half (lines 142-286 there).  `stream_launch`, `zpad_query`
-and `side_stream` hold the dispatch that the reference's Groth16 and
-GM17 provers each write inline.  The device-resident legacy tier
-(DevicePointVec, the scan MSM, device fixed-base) is not ported.
+its stream half (lines 142-286 there), and `fb_mul`'s device branch
+(lines 36-61 there).  `stream_launch`, `zpad_query` and `side_stream`
+hold the dispatch that the reference's Groth16 and GM17 provers each
+write inline.  The device-resident legacy tier (DevicePointVec, the scan
+MSM) is not ported.
+
+KEYGEN picks who computes the setups' fixed-base products [s_i] G
+(`fb_mul`, the Groth16, GM17 and KZG10 setups): "host", the C++ tier's
+windowed fixed-base, or "device", K8 (ops/fixed_base.py) on the card the
+setup's SNARK was built for, from 64 scalars up.  Either gives the same
+points, so the same keys.
 
 SCHEDULER picks who schedules a stream MSM: "host", the C++ tier's
 threaded msm_schedule, or "device", DevSchedMSM (ops/msm_stream_dev.py),
@@ -43,6 +50,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..device import on_card
 from ..utils.profiling import span
 
 # Stream-MSM window bits and accumulator lanes: the reference's values
@@ -62,6 +70,15 @@ SCHEDULER = "host"
 # Groth16 warm step under the device quotient was shorter in every pair,
 # its median by far more than the host steps' interquartile distance.
 QUOTIENT = "device"
+# Who computes the setups' fixed-base products, "host" or "device" (see
+# the module docstring).  "device" by the rule in PERF.md section 6: on
+# the H100 chip_smoke.py phase 11's fb_mul under "device" was shorter in
+# every pair of turns on all four forms (the reference chose the host on
+# a TPU, groth16/native.py:106-110; that number does not carry over).
+KEYGEN = "device"
+# the fewest scalars a device fixed-base takes (the reference's host
+# threshold of its C++ fixed-base, msm_dispatch.py:50)
+KEYGEN_MIN = 64
 
 
 def quotient_tier() -> str:
@@ -70,6 +87,14 @@ def quotient_tier() -> str:
         return QUOTIENT
     raise ValueError(f"msm_dispatch.QUOTIENT: 'host' or 'device', not "
                      f"{QUOTIENT!r}")
+
+
+def keygen_tier() -> str:
+    """KEYGEN, checked: an unknown value raises."""
+    if KEYGEN in ("host", "device"):
+        return KEYGEN
+    raise ValueError(f"msm_dispatch.KEYGEN: 'host' or 'device', not "
+                     f"{KEYGEN!r}")
 
 
 def host_query(owner, name: str):
@@ -93,16 +118,25 @@ def host_query(owner, name: str):
     return enc
 
 
-def fb_mul(cfg, which: str, scalars, scalar_bits: int):
-    """[s_i] G for G = cfg's G1 ("g1") or G2 ("g2") generator on the host:
-    the C++ windowed fixed-base from 64 scalars up where it takes the
-    curve, else a FixedBaseTable cached on cfg (the host half of the
+def fb_mul(cfg, which: str, scalars, scalar_bits: int, device=None):
+    """[s_i] G for G = cfg's G1 ("g1") or G2 ("g2") generator, as host
+    points.  Under KEYGEN "device", from KEYGEN_MIN scalars up on a card
+    `device`: K8 (ops/fixed_base.py; a failed build or launch raises).
+    Else on the host: the C++ windowed fixed-base from 64 scalars up where
+    it takes the curve, else a FixedBaseTable cached on cfg (the
     reference's fb_mul, msm_dispatch.py:36-61)."""
     from ..msm.host import (FixedBaseTable, _native, _native_curve_ok,
                             fixed_base_many)
 
     curve = cfg.g1 if which == "g1" else cfg.g2
     base = cfg.g1_gen if which == "g1" else cfg.g2_gen
+    if keygen_tier() == "device" and len(scalars) >= KEYGEN_MIN \
+            and on_card(device):
+        from ..ops.fixed_base import fixed_base_device
+
+        with span("fb_mul_device"):
+            return fixed_base_device(curve, base, scalar_bits).mul_many(
+                scalars, device)
     if len(scalars) >= 64 and _native_curve_ok(curve) \
             and _native() is not None:
         return fixed_base_many(base, scalars, scalar_bits)

@@ -1,7 +1,8 @@
 """Canonical serialization for proofs, verifying keys and proving-key
 checkpoints: the port's copy of `pcd_tpu/utils/serialize.py` for the
-Groth16, GM17 and Marlin cycle configs (the ark-serialize compat layout
-stays in the JAX package).  The proof and vk layouts and the Groth16 pk
+Groth16, GM17 and Marlin cycle configs, and its ark-serialize compat
+point layout (`ark_point_to_bytes` / `ark_point_from_bytes`, the same
+bytes as the JAX package's).  The proof and vk layouts and the Groth16 pk
 checkpoint are identical, so a blob written by either package reads in
 the other (pcd_tpu_torch/convert.py relies on this).  The JAX package
 checkpoints Groth16 pks only; the GM17 and Marlin pk layouts and PCD pks
@@ -608,3 +609,136 @@ def pcd_vk_from_bytes(pcd, data: bytes):
     seed = bytes(data[4 : 4 + slen])
     help_vk = snark_vk_from_bytes(pcd.ic.help_snark, data[4 + slen:])
     return ECCyclePCDVK(crh_pp=CRHParams(seed=seed), help_vk=help_vk)
+
+
+# ------------------------------------------------- ark-serialize compat
+# Compressed/uncompressed short-Weierstrass point layout matching
+# ark-serialize (reference Cargo.toml:16 pin; vk/proof bytes are hashed at
+# ec_cycle_pcd/mod.rs:123-141, so this layout is consensus-critical for
+# cross-checking against future arkworks golden vectors):
+#   - a base-field element is ceil((BITS + flag_bits)/8) little-endian
+#     bytes; extension elements are c0..c_{d-1} in order
+#   - SWFlags live in the top two bits of the LAST byte of the LAST
+#     coefficient: bit 7 = positive-y (y > -y), bit 6 = infinity
+#   - compressed = x with flags; uncompressed = x plain, then y with flags
+#   - infinity serializes zero coordinates with the infinity flag
+# The y-sign comparison for extension fields is lexicographic from the
+# highest coefficient down (ark_ff's Ord on QuadExt/CubicExt compares c1
+# resp. c2 first).  UNVERIFIED against vendored arkworks bytes (deps are
+# not on disk — SURVEY.md L1 note); golden-vector tests can be dropped in
+# without code changes.
+
+_ARK_POSITIVE_Y = 1 << 7
+_ARK_INFINITY = 1 << 6
+
+
+def _ark_coeff_sizes(prime, flag_bits: int):
+    plain = (prime.BITS + 7) // 8
+    flagged = (prime.BITS + flag_bits + 7) // 8
+    return plain, flagged
+
+
+def _ark_write_field(out, elem, prime, deg, flags: int | None):
+    """Append one (possibly extension) field element; `flags` goes into
+    the final coefficient's final byte (None = no flag bits reserved)."""
+    plain, flagged = _ark_coeff_sizes(prime, 2 if flags is not None else 0)
+    coeffs = elem.to_prime_coeffs() if deg > 1 else [elem]
+    for i, c in enumerate(coeffs):
+        last = i == deg - 1
+        size = flagged if (last and flags is not None) else plain
+        b = bytearray(int(c.n).to_bytes(size, "little"))
+        if last and flags is not None:
+            b[-1] |= flags
+        out.append(bytes(b))
+
+
+def _ark_read_field(curve, buf, off, with_flags: bool):
+    F = curve.F
+    prime = F.prime_subfield()
+    deg = F.extension_degree_over_prime()
+    plain, flagged = _ark_coeff_sizes(prime, 2 if with_flags else 0)
+    coeffs = []
+    flags = 0
+    for i in range(deg):
+        last = i == deg - 1
+        size = flagged if (last and with_flags) else plain
+        raw = bytearray(buf[off : off + size])
+        off += size
+        if last and with_flags:
+            flags = raw[-1] & (_ARK_POSITIVE_Y | _ARK_INFINITY)
+            raw[-1] &= ~(_ARK_POSITIVE_Y | _ARK_INFINITY) & 0xFF
+        n = int.from_bytes(raw, "little")
+        if n >= prime.MODULUS:
+            raise ValueError("ark point coefficient >= modulus")
+        coeffs.append(prime.from_int(n))
+    elem = F.from_prime_coeffs(coeffs) if deg > 1 else coeffs[0]
+    return elem, flags, off
+
+
+def _ark_y_is_positive(y) -> bool:
+    """arkworks' from_y_sign(y > -y): lexicographic compare, highest
+    extension coefficient first."""
+    ny = -y
+    if hasattr(y, "to_prime_coeffs"):
+        a = tuple(int(c.n) for c in reversed(y.to_prime_coeffs()))
+        b = tuple(int(c.n) for c in reversed(ny.to_prime_coeffs()))
+        return a > b
+    return int(y.n) > int(ny.n)
+
+
+def ark_point_size(curve, compressed: bool = True) -> int:
+    prime = curve.F.prime_subfield()
+    deg = curve.F.extension_degree_over_prime()
+    plain, flagged = _ark_coeff_sizes(prime, 2)
+    one = (deg - 1) * plain + flagged
+    return one if compressed else (deg * plain + one)
+
+
+def ark_point_to_bytes(pt, compressed: bool = True) -> bytes:
+    curve = pt.curve
+    F = curve.F
+    prime = F.prime_subfield()
+    deg = F.extension_degree_over_prime()
+    out = []
+    if pt.is_infinity():
+        zero = F.from_int(0) if deg == 1 else F.zero()
+        if compressed:
+            _ark_write_field(out, zero, prime, deg, _ARK_INFINITY)
+        else:
+            _ark_write_field(out, zero, prime, deg, None)
+            _ark_write_field(out, zero, prime, deg, _ARK_INFINITY)
+        return b"".join(out)
+    sign = _ARK_POSITIVE_Y if _ark_y_is_positive(pt.y) else 0
+    if compressed:
+        _ark_write_field(out, pt.x, prime, deg, sign)
+    else:
+        _ark_write_field(out, pt.x, prime, deg, None)
+        _ark_write_field(out, pt.y, prime, deg, sign)
+    return b"".join(out)
+
+
+def ark_point_from_bytes(curve, data, compressed: bool = True, off: int = 0):
+    """Parse one point; returns (point, next_offset).  Compressed points
+    recover y from the curve equation and the sign flag; all points are
+    curve-checked (unlike new_verification_key_unchecked in the reference,
+    data_structures.rs:153-162 — deserialization here always validates)."""
+    if compressed:
+        x, flags, off = _ark_read_field(curve, data, off, True)
+        if flags & _ARK_INFINITY:
+            return curve.infinity(), off
+        rhs = x * x * x + curve.a * x + curve.b
+        y = rhs.sqrt()
+        if y is None:
+            raise ValueError("ark point x has no corresponding y")
+        want_pos = bool(flags & _ARK_POSITIVE_Y)
+        if _ark_y_is_positive(y) != want_pos:
+            y = -y
+        return curve.point(x, y), off
+    x, _, off = _ark_read_field(curve, data, off, False)
+    y, flags, off = _ark_read_field(curve, data, off, True)
+    if flags & _ARK_INFINITY:
+        return curve.infinity(), off
+    pos = bool(flags & _ARK_POSITIVE_Y)
+    if _ark_y_is_positive(y) != pos:
+        raise ValueError("ark point y-sign flag inconsistent with y")
+    return curve.point(x, y), off

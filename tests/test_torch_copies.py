@@ -5,7 +5,9 @@ same text as their modules.  Each copy of `pcd_tpu/<path>` lives at
 EDITED: the per-process temporaries of `pcd/ec_cycle.py` (its placeholder
 cache) and `native/__init__.py` (its build), and the docstrings of
 `fields/constants.py` and `fields/prime.py`, which name the reference by
-its name and not by a path.  An EDITED hunk is the copy's lines and a
+its name and not by a path, and the absolute imports of
+`parallel/farm.py`'s workers, which rebuild the pk from the port's
+configs.  An EDITED hunk is the copy's lines and a
 digest of the module lines they stand for, so a change on either side
 fails the test.  Reads files only; imports nothing of either package.
 """
@@ -19,17 +21,19 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIRROR = "The port's copy of `pcd_tpu/"
 PACKAGES = ("crh", "curves", "fields", "gadgets", "msm", "ops", "pairing",
-            "pcd", "poly", "r1cs", "snark", "snark/gm17", "snark/groth16",
-            "snark/marlin", "utils")
+            "parallel", "pcd", "poly", "r1cs", "snark", "snark/gm17",
+            "snark/groth16", "snark/marlin", "utils")
 COPIES = (
-    "crh/api.py", "crh/bowe_hopwood.py", "curves/models.py",
+    "crh/api.py", "crh/bowe_hopwood.py", "crh/pedersen.py",
+    "curves/models.py",
     "curves/short_weierstrass.py", "curves/twisted_edwards.py",
     "fields/constants.py", "fields/prime.py", "fields/tower.py",
     "gadgets/fields_ext.py", "gadgets/fp.py", "gadgets/inputs.py",
     "gadgets/nonnative.py", "gadgets/pairing.py", "gadgets/sw.py",
     "gadgets/te.py", "msm/host.py", "native/__init__.py",
     "native/pcd_native.cpp", "pairing/ate.py", "pcd/api.py",
-    "pcd/ec_cycle.py", "poly/domain.py", "r1cs/program.py",
+    "parallel/farm.py", "parallel/pipeline.py", "pcd/ec_cycle.py",
+    "poly/domain.py", "r1cs/program.py",
     "r1cs/system.py", "snark/api.py", "snark/gm17/gadget.py",
     "snark/groth16/gadget.py", "snark/marlin/gadget.py",
     "snark/marlin/poseidon.py", "snark/plan.py", "utils/rng.py",
@@ -58,6 +62,13 @@ EDITED = {
           "vendored with",
           "the reference.  The base constants below (moduli, curve "
           "coefficients, G1"), "04353036cfc88800")],
+    "parallel/farm.py": [
+        (("    import pcd_tpu_torch.configs as configs",
+          "    from pcd_tpu_torch.utils.rng import ChaChaRng"),
+         "20a5e76cb62f79a5"),
+        (("    from pcd_tpu_torch.utils.rng import ChaChaRng",
+          "    from pcd_tpu_torch.utils.serialize import pcd_proof_from_bytes, \\"),
+         "f6e66e3a57241cbb")],
     "fields/prime.py": [
         (("pinned at the reference's Cargo.toml:17) implements "
           "Montgomery-form scalar",), "c02cdf068eca468c")],

@@ -3,12 +3,14 @@ ec.cuh) against the port's plain torch versions, on the CPU: the host build
 csrc/host_check.cpp runs the carry-chain instruction sequence of the card
 in emulation (csrc/ptx.cuh), so the Fp^D product and both RCB15 formulas
 are checked limb for limb without a card, in every field form, on random
-field elements and the edge values 0, 1, p - 1 and the identity.  The
+field elements and the edge values 0, 1, p - 1 and the identity; so are
+K8's Fp^D inversion, its affine store and its whole window loop.  The
 plain versions are themselves held to pcd_tpu by test_torch_field_ec.py.
 Port-only: nothing here imports JAX.
 """
 
 import os
+import random
 import shutil
 import subprocess
 
@@ -20,6 +22,7 @@ torch = pytest.importorskip("torch")
 from pcd_tpu_torch.curves import models as TM  # noqa: E402
 from pcd_tpu_torch.ops.ec import ec_ctx  # noqa: E402
 from pcd_tpu_torch.ops.field import NLIMB, ints_to_limbs  # noqa: E402
+from pcd_tpu_torch.ops.field import limbs_to_ints  # noqa: E402
 from pcd_tpu_torch.ops.kernels import CSRC  # noqa: E402
 
 FORMS = [("toy_cycle", "main", "g1"), ("toy_cycle", "main", "g2"),
@@ -314,3 +317,98 @@ def test_madd_deal_rows(case, shapes):
         for b, g, r in dealt:
             per.setdefault((b, g), []).append(r)
         assert all(v == sorted(v) for v in per.values())
+
+
+# -- K8's inversion, affine store and window loop (csrc/field.cuh fe_inv,
+# csrc/ec.cuh pt_store_affine and fb_point) -------------------------------
+
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_fe_inv_matches_plain(form, host_check):
+    """fe_inv (host op 7) against FieldCtx.inv_plain, limb for limb, with
+    0 -> 0 and 1 and p - 1 among the inputs; and a a^-1 = 1."""
+    ec = _ec(form)
+    f = ec.f
+    a = _elems(ec, np.random.default_rng(21), (16,))
+    got = _run(host_check, ec, 7, a).reshape(a.shape)
+    want = f.from_plain(f.inv_plain(f.to_plain(torch.from_numpy(a))
+                                    .movedim(-1, 1)).movedim(1, -1)).numpy()
+    assert np.array_equal(got, want)
+    prod = _run(host_check, ec, 0, a[1:], got[1:]).reshape(a[1:].shape)
+    one = ints_to_limbs([f.r] + [0] * (ec.d - 1)).view(np.int32)
+    assert np.array_equal(prod, np.broadcast_to(one, prod.shape))
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("form", FORMS, ids=IDS)
+def test_pt_store_affine_matches_host_curve(form, host_check):
+    """pt_store_affine (host op 8): projective points (multiples of the
+    generator with a random Z, and the identity) to canonical affine
+    coordinates, the identity zero with bit 31 of x's top limb set."""
+    ec = _ec(form)
+    curve, f = ec.curve, ec.f
+    cyc, side, grp = form
+    gen = getattr(getattr(getattr(TM, cyc)(), side), grp + "_gen")
+    rng = np.random.default_rng(22)
+    pts = [gen * k for k in (1, 2, 5, 1234567)] + [curve.infinity()]
+    zs = _elems(ec, rng, (len(pts),))
+    zs[0] = ints_to_limbs([f.r] + [0] * (ec.d - 1)).view(np.int32)
+    P = np.zeros((len(pts), 3, ec.d, NLIMB), dtype=np.int32)
+    for i, pt in enumerate(pts):
+        if pt.is_infinity():
+            P[i, 1] = zs[0]                     # (0 : 1 : 0)
+            continue
+        for k, c in enumerate((pt.x, pt.y)):
+            P[i, k] = ints_to_limbs([v * f.r % f.p for v in _coeffs(c)]
+                                    ).view(np.int32)
+        P[i, 2] = zs[i]
+        P[i, :2] = _run(host_check, ec, 0, P[i, :2],
+                        np.broadcast_to(zs[i], P[i, :2].shape)
+                        ).reshape(P[i, :2].shape)
+    got = _run(host_check, ec, 8, P).reshape(len(pts), 2, ec.d, NLIMB)
+    for i, pt in enumerate(pts):
+        if pt.is_infinity():
+            rest = got[i].reshape(-1).copy()
+            assert rest[NLIMB - 1] == np.int32(-(1 << 31))
+            rest[NLIMB - 1] = 0
+            assert not rest.any()
+            continue
+        vals = limbs_to_ints(got[i])
+        assert vals == _coeffs(pt.x) + _coeffs(pt.y), i
+
+
+def _coeffs(e):
+    return [int(c.n) for c in (e.to_prime_coeffs()
+                               if hasattr(e, "to_prime_coeffs") else [e])]
+
+
+@pytest.mark.parametrize("form", [FORMS[0], FORMS[2], FORMS[3]],
+                         ids=[IDS[0], IDS[2], IDS[3]])
+def test_fb_point_matches_plain(form, host_check):
+    """fb_point (host op 9), K8's whole body for one scalar, against
+    FixedBaseDevice.mul_digits_plain on the same window table and digits:
+    0, 1, r - 1, every low byte 0xFF, a top-window wrap and random
+    scalars."""
+    from pcd_tpu_torch.ops.fixed_base import fixed_base_device
+
+    ec = _ec(form)
+    cyc, side, grp = form
+    cfg = getattr(getattr(TM, cyc)(), side)
+    fb = fixed_base_device(ec.curve, getattr(cfg, grp + "_gen"),
+                           cfg.Fr.BITS)
+    r, top = cfg.Fr.MODULUS, 8 * (fb.nwin - 1)
+    rng = random.Random(9)
+    wrap = next(low + (d << top) for d in range(1, 256)
+                for low in ((-(d << top)) % r,) if low < 1 << top)
+    sc = [0, 1, r - 1, (1 << top) - 1, wrap] + [rng.randrange(r)
+                                                for _ in range(6)]
+    dg = fb.digits_from_ints(sc)
+    want = fb.mul_digits_plain(torch.from_numpy(dg)).numpy()
+    req = (np.array([9, ec.d, len(sc)], dtype=np.int32).tobytes()
+           + ec.kconsts.tobytes() + np.int32(fb.nwin).tobytes()
+           + fb.table_host.tobytes() + np.ascontiguousarray(dg.T).tobytes())
+    out = subprocess.run([host_check], input=req, capture_output=True,
+                         check=True, timeout=120).stdout
+    got = np.frombuffer(out, dtype=np.int32).reshape(want.shape)
+    assert np.array_equal(got, want)
+    assert got[0, 0, 0, NLIMB - 1] == np.int32(-(1 << 31))
+    assert got[4, 0, 0, NLIMB - 1] == np.int32(-(1 << 31))   # s = 0 mod r

@@ -833,3 +833,169 @@ def test_spmv_long_rows_match_plain(cuda_device):
         got = m.apply(zm)
         assert torch.equal(got, m.apply_plain(zm)), k
         assert np.array_equal(limbs_host(f.from_mont(got)), want[k]), k
+
+
+# -- K8 fixed_base (csrc/fixed_base.cu) and the device keygen ----------------
+
+K8_FORMS = FORMS + [("toy_cycle", "main", "g2"), ("toy_cycle", "help", "g1")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", K8_FORMS,
+                         ids=["-".join(f) for f in K8_FORMS])
+def test_fixed_base_matches_plain(form, cuda_device):
+    """K8 limb for limb against its plain version on the card, and as
+    points against the C++ fixed-base: 0, 1, r - 1, every low byte 0xFF,
+    the top window's wraps (the last add doubling or cancelling, against
+    [s mod r] G) and random scalars, n not a multiple of the block."""
+    import random
+
+    from pcd_tpu_torch.ops.fixed_base import fixed_base_device
+
+    cyc, side, grp = form
+    cfg = getattr(getattr(M, cyc)(), side)
+    curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
+    r, bits = cfg.Fr.MODULUS, cfg.Fr.BITS
+    fb = fixed_base_device(curve, gen, bits)
+    top = 8 * (fb.nwin - 1)
+    wraps = [low + (d << top) for d in range(1, 256)
+             for low in ((d << top) % r, (-(d << top)) % r)
+             if low < 1 << top]
+    rng = random.Random(11)
+    sc = [0, 1, r - 1, (1 << top) - 1] + wraps[:4] + wraps[-4:] + [
+        rng.randrange(r) for _ in range(301)]
+    digits = torch.from_numpy(fb.digits_from_ints(sc)).to(cuda_device)
+    before = launch_counts().get(("fixed_base_mul", curve.name), 0)
+    out = fb.mul_digits(digits)
+    torch.cuda.synchronize()
+    assert launch_counts()[("fixed_base_mul", curve.name)] == before + 1
+    assert torch.equal(out, fb.mul_digits_plain(digits))
+    got = fb.to_host(out)
+    want = fixed_base_many(gen, [s % r for s in sc], bits)
+    assert got == want
+    assert got[0].is_infinity()
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_device_keygen_groth16_setup(cuda_device, monkeypatch):
+    """A toy Groth16 setup under KEYGEN "device" on the card gives the
+    host tier's pk bytes, with K8 launched once per query vector."""
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.snark.groth16.native import Groth16
+    from pcd_tpu_torch.utils import serialize as S
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    from _torch_support import SquareChain
+
+    cfg = M.toy_mnt4()
+    blobs = {}
+    for tier in ("host", "device"):
+        monkeypatch.setattr(msm_dispatch, "KEYGEN", tier)
+        before = dict(launch_counts())
+        pk, _ = Groth16(cfg, device=cuda_device).circuit_specific_setup(
+            SquareChain(3, 80), ChaChaRng(b"card keygen"))
+        blobs[tier] = S.groth16_pk_to_bytes(pk)
+        ran = {f: v - before.get((k, f), 0)
+               for (k, f), v in launch_counts().items()
+               if k == "fixed_base_mul" and v != before.get((k, f), 0)}
+        assert ran == ({} if tier == "host" else {cfg.g1.name: 4,
+                                                  cfg.g2.name: 1}), tier
+    assert blobs["host"] == blobs["device"]
+
+
+# -- the multiprocess proof farm (parallel/farm.py): its workers rebuild the
+# pk from pcd_tpu_torch.configs by name, on the card (the configs' default)
+
+def _sum_predicate_builder(F):
+    from pcd_tpu_torch.pcd.api import FpPredicate
+
+    class SumPredicate(FpPredicate):
+        PRIOR_MSG_LEN = 2
+
+        def generate_constraints(self, cs, msg, wit, priors, base):
+            (priors[0] + priors[1] + wit).enforce_equal(msg)
+
+    return SumPredicate(F)
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_farm_multiprocess(cuda_device):
+    """tests/test_dag_farm.py:59 on the port: two spawned workers, each
+    holding a pk replica rebuilt from the config factory and the seed."""
+    from pcd_tpu_torch import configs
+    from pcd_tpu_torch.parallel.farm import DagFarm, ProofDag
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    pcd = configs.toy_groth16()
+    F = pcd.ic.main_field
+    pred = _sum_predicate_builder(F)
+    seed = b"farm seed"
+    pk, vk = pcd.circuit_specific_setup(pred, ChaChaRng(seed))
+    dag = ProofDag()
+    for i in range(2):
+        dag.add_node(f"leaf{i}", F.from_int(i + 1), F.from_int(i + 1))
+    dag.add_node("root", F.from_int(1 + 2 + 7), F.from_int(7),
+                 priors=["leaf0", "leaf1"])
+    farm = DagFarm(pcd, pred, pk, workers=2, config_name="toy_groth16",
+                   seed=seed, predicate_builder=_sum_predicate_builder)
+    proofs = farm.run(dag)
+    assert pcd.verify(vk, pred, F.from_int(10), proofs["root"])
+
+
+def _kill_once_builder(F):
+    """tests/test_dag_farm.py's KillOncePredicate: kills its worker the
+    first time the magic message is proved (PCD_TPU_TEST_KILL_SENTINEL
+    names the one-shot sentinel file)."""
+    import os
+
+    from pcd_tpu_torch.pcd.api import FpPredicate
+
+    class KillOncePredicate(FpPredicate):
+        PRIOR_MSG_LEN = 2
+        MAGIC = 1 + 2 + 10
+
+        def flatten_message(self, msg):
+            raise NotImplementedError     # no replay: every prove runs here
+
+        def generate_constraints(self, cs, msg, wit, priors, base):
+            sentinel = os.environ.get("PCD_TPU_TEST_KILL_SENTINEL")
+            if sentinel and msg.val == self.MAGIC \
+                    and not os.path.exists(sentinel):
+                with open(sentinel, "w") as fh:
+                    fh.write("died")
+                os._exit(1)
+            (priors[0] + priors[1] + wit).enforce_equal(msg)
+
+    return KillOncePredicate(F)
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_farm_survives_worker_death(cuda_device, tmp_path, monkeypatch):
+    """tests/test_dag_farm.py:110 on the port: a worker dying mid-wave
+    poisons the pool; the farm rebuilds it and still proves the DAG."""
+    import os
+
+    from pcd_tpu_torch import configs
+    from pcd_tpu_torch.parallel.farm import DagFarm, ProofDag
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    sentinel = str(tmp_path / "kill_once")
+    monkeypatch.setenv("PCD_TPU_TEST_KILL_SENTINEL", sentinel)
+    pcd = configs.toy_groth16()
+    F = pcd.ic.main_field
+    pred = _kill_once_builder(F)
+    seed = b"farm death seed"
+    pk, vk = pcd.circuit_specific_setup(pred, ChaChaRng(seed))
+    dag = ProofDag()
+    for i in range(2):
+        dag.add_node(f"leaf{i}", F.from_int(i + 1), F.from_int(i + 1))
+    dag.add_node("mid", F.from_int(13), F.from_int(10),
+                 priors=["leaf0", "leaf1"])
+    farm = DagFarm(pcd, pred, pk, workers=2, config_name="toy_groth16",
+                   seed=seed, predicate_builder=_kill_once_builder)
+    proofs = farm.run(dag)
+    assert os.path.exists(sentinel), "kill never triggered"
+    assert pcd.verify(vk, pred, F.from_int(13), proofs["mid"])

@@ -14,6 +14,10 @@ pcd_tpu's, on the CPU with the plain versions of the kernels:
     pcd_tpu's on toy MNT4/MNT6 and MNT4-298/MNT6-298, with every commit
     MSM on the plain K1/K4 (one of each per MSM), the index key carried
     over through convert in the port's pk layout;
+  - with fft_any's device dispatch forced onto the CPU (its threshold
+    lowered, the CPU let through), the index's 9 and the prove's 8
+    transforms run on K5's plain version and the index key and proof
+    are byte-equal to pcd_tpu's, on toy MNT4/MNT6 and MNT4-298;
   - the vk and proof layouts against pcd_tpu's writers, and the
     universal-setup retry (NeedLargerBound);
   - a stream MSM that raises propagates out of prove: no latch, no host
@@ -45,6 +49,7 @@ from pcd_tpu_torch.gadgets.fp import fpvar_class as tfpvar  # noqa: E402
 from pcd_tpu_torch.ops import ec as tec  # noqa: E402
 from pcd_tpu_torch.r1cs.system import ConstraintSystem  # noqa: E402
 from pcd_tpu_torch.snark import msm_dispatch  # noqa: E402
+from pcd_tpu_torch.snark.marlin import ahp as tahp  # noqa: E402
 from pcd_tpu_torch.snark.api import NeedLargerBound  # noqa: E402
 from pcd_tpu_torch.snark.marlin import kzg as tkzg  # noqa: E402
 from pcd_tpu_torch.snark.marlin.kzg import KZG10  # noqa: E402
@@ -340,6 +345,55 @@ def test_marlin_proof_matches_reference(cfg_name, plain_stream):
     assert_one_k1_k4_per_msm(tcfg.g1, plain_stream)
     assert tm.verify(tvk, [tcfg.Fr.from_int(21)], proof)
     assert not tm.verify(tvk, [tcfg.Fr.from_int(22)], proof)
+
+
+@pytest.mark.parametrize("cfg_name", TOY + ["mnt4_298"])
+def test_marlin_device_fft_matches_reference(cfg_name, monkeypatch):
+    """fft_any's device branch on the CPU: the threshold lowered to 2
+    points and the CPU routed to it, so every transform of the port's own
+    index and prove runs through fft_ctx on K5's plain version (and K7's
+    Montgomery conversions): 9 in the index, 8 in the prove (round 1's
+    three Mz and z, round 2's r, round 3's three f).  The index key (from
+    the same universal-setup rng) and the proof are byte-equal to
+    pcd_tpu's, which runs every transform on the host."""
+    monkeypatch.setattr(tahp, "_DEVICE_FFT_THRESHOLD", 2)
+    monkeypatch.setattr(tahp, "on_card", lambda dev: dev is not None)
+    rcfg, tcfg = getattr(RM, cfg_name)(), getattr(TM, cfg_name)()
+    rm, tm = RMarlin(rcfg), MarlinSNARK(tcfg, device="cpu")
+    rpk, rvk = rm.index(rm.universal_setup(RBound(SRS_DEGREE),
+                                           RRng(b"marlin fft")), RMul())
+    tahp.DEVICE_FFTS.clear()
+    tec.reset_launch_counts()
+    tpk, tvk = tm.index(tm.universal_setup(MarlinBound(SRS_DEGREE),
+                                           TRng(b"marlin fft")), TMul())
+    assert tahp.DEVICE_FFTS == {("ifft", False): 9}
+    assert TS.marlin_pk_to_bytes(tcfg, tpk) == ref_marlin_pk_bytes(
+        rpk, rcfg.Fr)
+    tahp.DEVICE_FFTS.clear()
+    ref = rm.prove(rpk, RMul(3, 7), RRng(b"marlin fft prove"))
+    proof = tm.prove(tpk, TMul(3, 7), TRng(b"marlin fft prove"))
+    assert tahp.DEVICE_FFTS == {("ifft", False): 8}
+    assert TS.marlin_proof_to_bytes(proof, tcfg.Fr) \
+        == RS.marlin_proof_to_bytes(ref, rcfg.Fr)
+    passes = sum(v for (k, _), v in tec.plain_counts().items()
+                 if k == "ntt_pass")
+    assert passes >= 17 and tec.launch_counts() == {}
+    assert tm.verify(tvk, [tcfg.Fr.from_int(21)], proof)
+    assert not tm.verify(tvk, [tcfg.Fr.from_int(22)], proof)
+
+
+def test_fft_any_host_by_default():
+    """Without a card the AHP keeps the host path: a CPU device, or none,
+    never reaches the device NTT at any size."""
+    Fr = TM.toy_mnt4().Fr
+    vec = list(range(1, 40))
+    want = tahp.fft_any(Fr, vec, 64, "ifft")
+    tahp.DEVICE_FFTS.clear()
+    for dev in (None, torch.device("cpu")):
+        assert tahp.fft_any(Fr, vec, 64, "ifft", device=dev) == want
+        assert MarlinSNARK(TM.toy_mnt4(), device="cpu").ahp.device == \
+            torch.device("cpu")
+    assert not tahp.DEVICE_FFTS
 
 
 def test_marlin_layouts_match_reference():
