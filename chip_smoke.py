@@ -2,8 +2,8 @@
 """Drive pcd_tpu_torch on an NVIDIA card and hold its kernels to their
 plain versions.  Run from the root of a checkout with one CUDA card:
 
-    python3 chip_smoke.py                # phases 1-7 and 9-11
-    python3 chip_smoke.py --phases 1,6   # a subset of 1-4, 6, 7, 9-11
+    python3 chip_smoke.py                # phases 1-7 and 9-12
+    python3 chip_smoke.py --phases 1,6   # a subset of 1-4, 6, 7, 9-12
     python3 chip_smoke.py --phases 8     # the real Marlin chain (hours)
 
 Phases, one output line each, then a `kernels` JSON line and the final
@@ -134,12 +134,26 @@ status line:
      the same points from both, the device's wall split into digits,
      upload, kernel, download and point objects, and the verdict:
      "device" when its fb_mul is shorter in every pair of every form;
+ 12  the sharded prover (parallel/), after phase 4 on its pk (alone, it
+     sets mnt4_groth16 up itself): at world size 1 under NCCL
+     (parallel/mesh.make_mesh), `.dist` on both Groth16 provers, a warm
+     step from the same ChaCha seed as an unsharded one, then two more
+     (the first builds the shards' tables, matrices and roots); the
+     proofs byte-equal, the sharded step verified and the negative check
+     rejected, K1 and K4 exactly once per commitment MSM, K5 once a pass
+     of the three 4-step transforms' n1 and n2 transforms, K6 once a
+     matrix and K7 eight times a field; the steps' seconds, with no
+     verdict (one card); then two gloo ranks, threads of this process
+     sharing the card: sharded stream MSMs of 2^14 + 3 MNT4 G1 and 2^12 +
+     1 MNT6 G2 points against the C++ Pippenger on both ranks, K1 and K4
+     once a rank, and DistHPoly on MNT4-298's Fr at n = 2^12 3 against
+     the single-card hpoly on the same evaluations;
   8  (only when asked for alone) the real mnt4_marlin PCD chain through
      the universal setup (reference tests/mnt4_marlin.rs:141-204):
      universal setup, index, base case, step 2, both verified, and the
      negative check.  Hours of host work: never in the default run.
 Phase 1 always runs, phases 9 and 11 run after phase 3, before the
-chains, and phase 10 between phases 4 and 6.  K8's records come from
+chains, and phases 10 and 12 between phases 4 and 6.  K8's records come from
 phase 11; their `launches` are the setups' (phases 4, 6 and 7).  K2's and K3's records come from phase
 2; their `launches` sum their launches over the chains run (null when
 none ran).  The P1 kernels' records come from phase 9; their `launches`
@@ -1790,7 +1804,7 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     check_once_per_msm(base_counts, forms, "the base case")
     check_once_per_msm(step2, forms, "the warm step")
     took = {"sched": None, "trace": None, "chain": (pcd, pk),
-            "keygen": keygen}
+            "keygen": keygen, "step": (vk, pred, proof_1)}
     if turns:
         pipelined_chain(pcd, pk, vk, pred, forms, counter, dev, phase)
         took["sched"] = knob_turns("SCHEDULER", pcd, pk, vk, pred, proof_1,
@@ -2284,6 +2298,218 @@ def phase_quotient(results, took=None, dev="cuda", phase=10):
                    f"{cpp_ms:.1f} ms wall; launches per quotient "
                    + json.dumps(per))
     return pend
+
+
+# phase 12, part 2: the sharded stream MSMs of two gloo ranks sharing the
+# card (curve, points) and the sharded quotient's domain
+SHARDED_MSMS = (("mnt4_298", "g1", (1 << 14) + 3), ("mnt6_298", "g2",
+                                                   (1 << 12) + 1))
+SHARDED_H_N = (1 << 12) * 3
+
+
+def sharded_launches(dctx, pcd, pk):
+    """The quotient kernels' launches a sharded device-quotient warm step
+    must show, per field: K5 once a pass of the n1 and n2 transforms of
+    the three 4-step transforms (two inverse, one forward), K6 once a
+    matrix, K7 eight times (z to Montgomery, the replayed-witness check,
+    three twiddle products, the coset scale, (a b - c) Z_H^-1 and the
+    unscale).  {(kernel, field): launches}, and the (n1, n2) of each
+    side."""
+    want, splits = {}, {}
+    ic = pcd.ic
+    for side, F, spk in (("main", ic.main_field, pk.main_pk),
+                         ("help", ic.help_field, pk.help_pk)):
+        dh = dctx.h_poly(F, spk.domain_size)
+        if dh is None:
+            raise AssertionError(f"{side}: no split of {spk.domain_size} "
+                                 f"for world size {dctx.ndev}")
+        fs = dh.fs
+        want[("ntt_pass", F.NAME)] = 3 * (len(fs.ctx1.passes)
+                                          + len(fs.ctx2.passes))
+        want[("spmv_rows", F.NAME)] = 3
+        want[("fp_vec", F.NAME)] = 8
+        splits[side] = (dh.n1, dh.n2)
+    return want, splits
+
+
+def sharded_part2(card, phase, dev="cuda"):
+    """Two gloo ranks, threads of this process sharing the card: the
+    sharded stream MSMs of SHARDED_MSMS against the C++ Pippenger, K1 and
+    K4 once a rank an MSM, and DistHPoly on MNT4-298's Fr at SHARDED_H_N
+    against the single-card hpoly on the same evaluations."""
+    import numpy as np
+    import torch
+
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.msm.host import fixed_base_many
+    from pcd_tpu_torch.msm.host import msm as host_msm
+    from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.ops.fft_tensor import fft_ctx, hpoly
+    from pcd_tpu_torch.ops.field import limbs_host
+    from pcd_tpu_torch.parallel.dist import DistHPoly
+    from pcd_tpu_torch.parallel.mesh import run_ranks, thread_meshes
+    from pcd_tpu_torch.parallel.stream_dist import ShardedStreamMSM
+
+    dev = torch.device(dev)
+    meshes = thread_meshes(2, dev)
+    counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
+    rng = random.Random(12)
+    for model, grp, n in SHARDED_MSMS:
+        cfg = getattr(M, model)()
+        curve = getattr(cfg, grp)
+        gen = getattr(cfg, grp + "_gen")
+        r, bits = cfg.Fr.MODULUS, cfg.Fr.BITS
+        pts = fixed_base_many(gen, [rng.randrange(1, r) for _ in range(n)],
+                              bits)
+        pts[3] = curve.infinity()
+        enc = native.encode_points(pts)
+        scalars = [rng.randrange(r) for _ in range(n)]
+        scalars[5], scalars[6] = 0, r - 1
+        limbs = native.scalars_to_limbs(scalars)
+        want = host_msm(enc, scalars)
+
+        def rank(mesh, curve=curve, bits=bits, enc=enc, limbs=limbs):
+            smsm = ShardedStreamMSM(curve, bits, mesh)
+            table, _ = smsm.table_from_limbs(enc.xs, enc.ys, enc.inf)
+            return smsm.msm_limbs(table, limbs)
+
+        ec.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run_ranks(meshes, rank, timeout_s=300)
+        secs = time.perf_counter() - t0
+        counts = counter()
+        if got != [want, want]:
+            raise AssertionError(f"sharded stream MSM {curve.name}: a rank "
+                                 f"differs from the C++ Pippenger")
+        for k in ("madd_accumulate", "bucket_finish"):
+            if counts.get((k, curve.name), 0) != 2:
+                raise AssertionError(f"sharded MSM {curve.name}: {k} "
+                                     f"launched {counts.get((k, curve.name))}"
+                                     f" times on 2 ranks, expected 2")
+        say(phase, f"2 gloo ranks on one card ({card}): sharded stream MSM "
+                   f"of {n} {curve.name} points == C++ Pippenger on both "
+                   f"ranks, K1 and K4 once a rank, {secs:.2f}s wall")
+    F = M.mnt4_298().Fr
+    p, N = F.MODULUS, SHARDED_H_N
+    evs = [[rng.randrange(p) for _ in range(N)] for _ in range(3)]
+
+    def hrank(mesh):
+        dh = DistHPoly(F, N, mesh)
+        blk = dh.h_block(torch.stack([dh.encode_evals(v) for v in evs]))
+        return (dh.n1, dh.n2), limbs_host(dh.gather(blk))
+
+    got = run_ranks(meshes, hrank, timeout_s=300)
+    fctx = fft_ctx(F, N, dev)
+    dom = fctx.domain
+    zh = pow(dom.vanishing_poly_at(dom.coset_shift), -1, p)
+    want = limbs_host(hpoly(fctx, *(fctx.encode(v) for v in evs), zh))
+    for split, h in got:
+        if not np.array_equal(h, want):
+            raise AssertionError(f"DistHPoly n={N} at 2 ranks != the "
+                                 f"single-card hpoly")
+    say(phase, f"2 gloo ranks on one card ({card}): DistHPoly MNT4-298 Fr "
+               f"n={N} ({got[0][0][0]} x {got[0][0][1]}) == the single-card "
+               f"hpoly on the same evaluations, on both ranks")
+
+
+def phase_sharded(card, took=None, dev=None, phase=12):
+    """The sharded prover (parallel/dist.py) at world size 1 under NCCL:
+    `.dist` on both Groth16 provers of mnt4_groth16, a warm step from the
+    same ChaCha seed as an unsharded one, proofs byte-equal, verified and
+    the negative check rejected, K1 and K4 once per commitment MSM, K5,
+    K6 and K7 as sharded_launches says; then sharded_part2.  Reuses
+    phase 4's pk, else sets the chain up itself.  Returns the launch
+    counts of the sharded warm step."""
+    import torch.distributed as dist
+
+    from pcd_tpu_torch import configs
+    from pcd_tpu_torch.ops import ec
+    from pcd_tpu_torch.parallel.dist import DistContext
+    from pcd_tpu_torch.parallel.mesh import make_mesh
+    from pcd_tpu_torch.utils import serialize
+    from pcd_tpu_torch.utils.rng import ChaChaRng
+
+    t_phase = time.perf_counter()
+    if took is None:
+        pcd = configs.mnt4_groth16(dev)
+        pred = counter_predicate(pcd.ic.main_field)
+        rng = ChaChaRng(b"chip smoke sharded setup")
+        pk, vk = pcd.circuit_specific_setup(pred, rng)
+        one = pcd.ic.main_field.from_int(1)
+        proof_1 = pcd.prove(pk, pred, one, one, [], [], rng)
+        say(phase, f"mnt4_groth16 set up, base case proved: "
+                   f"{time.perf_counter() - t_phase:.1f}s")
+    else:
+        pcd, pk = took["chain"]
+        vk, pred, proof_1 = took["step"]
+    dev = pcd.ic.main_snark.device
+    counter = ec.launch_counts if dev.type == "cuda" else ec.plain_counts
+    F = pcd.ic.main_field
+    one, two = F.from_int(1), F.from_int(2)
+    cyc = pcd.ic.cycle
+    kinds = (type(pcd.ic.main_snark).__name__,
+             type(pcd.ic.help_snark).__name__)
+    forms = [(c.name, grp, kind) for cfg, kind in zip((cyc.main, cyc.help),
+                                                      kinds)
+             for grp, c in (("g1", cfg.g1), ("g2", cfg.g2))]
+    mesh = make_mesh(dev)
+    dctx = DistContext(mesh)
+    snarks = (pcd.ic.main_snark, pcd.ic.help_snark)
+    seed = b"chip smoke sharded step"
+    steps, secs, counts = {}, {}, {}
+    try:
+        for tag, d in (("unsharded", None), ("sharded set-up", dctx),
+                       ("sharded", dctx)):
+            for s in snarks:
+                s.dist = d
+            ec.reset_launch_counts()
+            t0 = time.perf_counter()
+            steps[tag] = pcd.prove(pk, pred, two, one, [one], [proof_1],
+                                   ChaChaRng(seed))
+            sync(dev)
+            secs[tag] = time.perf_counter() - t0
+            counts[tag] = counter()
+    finally:
+        for s in snarks:
+            s.dist = None
+    blobs = {tag: serialize.pcd_proof_to_bytes(pcd, pr)
+             for tag, pr in steps.items()}
+    if len(set(blobs.values())) != 1:
+        raise AssertionError("the sharded warm step's proof bytes differ "
+                             "from the unsharded step's")
+    if not pcd.verify(vk, pred, two, steps["sharded"]):
+        raise AssertionError("the sharded warm step does not verify")
+    if pcd.verify(vk, pred, one, steps["sharded"]):
+        raise AssertionError("sharded step: negative check accepted an old "
+                             "message")
+    if dctx.unsharded:
+        raise AssertionError(f"a quotient ran unsharded: {dctx.unsharded}")
+    want, splits = sharded_launches(dctx, pcd, pk)
+    for tag in ("sharded set-up", "sharded"):
+        check_once_per_msm(counts[tag], forms, f"the {tag} warm step")
+    # the set-up step also builds the n1 and n2 root tables (K7)
+    got = {k: v for k, v in counts["sharded"].items() if k in want}
+    if got != want:
+        raise AssertionError(f"the sharded warm step's quotient launches "
+                             f"{got}, expected {want}")
+    say(phase, f"world size {mesh.size} ({mesh.backend}, {mesh.device}, "
+               f"{card}): {pcd.ic.cycle.name} warm step with .dist on both "
+               f"provers (main {splits['main'][0]} x {splits['main'][1]}, "
+               f"help {splits['help'][0]} x {splits['help'][1]}) byte-equal "
+               f"to the unsharded step from the same ChaCha seed, verifies, "
+               f"negative check rejects; K1 and K4 once per commitment MSM")
+    say(phase, "sharded warm step quotient launches (K5 a pass of every "
+               "n1 and n2 transform, K6 a matrix, K7 eight a field): "
+               + json.dumps({f"{k}[{f}]": v for (k, f), v
+                             in sorted(want.items())}))
+    say(phase, "warm step seconds (one card, no verdict): " + json.dumps(
+        {k: round(v, 3) for k, v in secs.items()}) + f"; {card}")
+    sharded_part2(card, phase, dev)
+    dist.destroy_process_group()
+    say(phase, f"sharded prover: {time.perf_counter() - t_phase:.1f}s; "
+               f"{card}")
+    return counts["sharded"]
 
 
 class SquareChain:
@@ -2821,12 +3047,12 @@ def phase_marlin_chain(dev=None, phase=8):
 
 
 def main(argv):
-    phases = {1, 2, 3, 4, 6, 7, 9, 10, 11}
+    phases = {1, 2, 3, 4, 6, 7, 9, 10, 11, 12}
     if "--phases" in argv:
         asked = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
         if asked - phases - {8} or (8 in asked and asked - {1, 8}):
             print(f"chip_smoke: phases to choose: 1, 2, 3, 4, 6, 7, 9, 10, "
-                  f"11, or 8 alone (5 runs with 4 and 6); asked "
+                  f"11, 12, or 8 alone (5 runs with 4 and 6); asked "
                   f"{sorted(asked)}", file=sys.stderr)
             return 2
         phases = asked | {1}
@@ -2858,12 +3084,16 @@ def main(argv):
         say(11, f"device keygen: {time.perf_counter() - t0:.1f}s")
     chain_counts, quot_counts, took4, pend = [], {}, None, []
     keygens = {}                   # K8 launches of the setups, by form
-    for ph in sorted(set(CHAINS) & phases | ({10} & phases),
-                     key=lambda ph: 4.5 if ph == 10 else ph):
-        if ph == 10:               # after phase 4: its pk and warm step
+    after4 = {10: 4.5, 12: 4.7}    # after phase 4: its pk and warm step
+    for ph in sorted(set(CHAINS) & phases | (set(after4) & phases),
+                     key=lambda ph: after4.get(ph, ph)):
+        if ph == 10:
             t0 = time.perf_counter()
             pend = phase_quotient(results, took4)
             say(10, f"device quotient: {time.perf_counter() - t0:.1f}s")
+            continue
+        if ph == 12:
+            phase_sharded(card, took4)
             continue
         for name in CHAINS[ph]:
             t0 = time.perf_counter()

@@ -14,7 +14,9 @@ This module runs the help stage on a worker thread so the overlap that is
 legal happens automatically, and provides the chain-driver API.
 
 The port's copy of `pcd_tpu/parallel/pipeline.py`; the pcd_tpu paths
-named here are the JAX package's modules.
+named here are the JAX package's modules.  One hunk differs: the help
+worker marks its failing item done, so a help prove that raises makes
+prove_chain raise where the module waits for ever.
 """
 
 from __future__ import annotations
@@ -50,9 +52,11 @@ class PipelinedChainProver:
         errors = []
 
         def help_worker():
-            try:
-                while True:
-                    item = help_in.get()
+            # every item taken is marked done, the failing one too, so the
+            # main thread's join returns and raises the error
+            while True:
+                item = help_in.get()
+                try:
                     if item is None:
                         return
                     i, input_hash, main_proof = item
@@ -62,9 +66,11 @@ class PipelinedChainProver:
                     proofs[i] = ic.help_snark.prove(
                         pk.help_pk, help_circuit,
                         ChaChaRng(rng_seed + b"h%d" % i))
+                except Exception as e:
+                    errors.append(e)
+                    return
+                finally:
                     help_in.task_done()
-            except Exception as e:  # pragma: no cover
-                errors.append(e)
 
         t = threading.Thread(target=help_worker, daemon=True)
         t.start()

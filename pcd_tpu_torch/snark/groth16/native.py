@@ -21,6 +21,14 @@ matvec (ops/matvec_tensor.py), the replay check and the coset pipeline
 (ops/fft_tensor.py).  Meanwhile the commitment MSMs of circuits with at
 least STREAM_MIN variables go to the stream MSM (ops/msm_stream.py) on
 `device`: the CUDA kernels on a card, their plain versions on the CPU.
+
+A parallel.dist.DistContext assigned to `.dist` (the reference's seam,
+its groth16/native.py:78-83) shards the prove over the ranks of its mesh,
+every rank running the same prove: the five commitment MSMs go through
+the sharded stream MSM, and the device quotient through the sharded
+matvec and quotient (parallel/dist.py), whose h never leaves the rank:
+the h-query MSM takes each rank's h-query rows in the layout of its h
+block.  Every rank ends with the same proof.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ class Groth16:
 
         self.pairing = pairing_for(curve_cfg)
         self.msm = host_msm
+        self.dist = None
 
     def _h_poly(self, domain, a_ev, b_ev, c_ev):
         """h = (A B - C)/Z_H on a coset (pure-Python host pipeline)."""
@@ -135,11 +144,15 @@ class Groth16:
         # schedule upload
         g1, g2 = self.cfg.g1, self.cfg.g2
         l_nm = zpad_query(pk, "l_query", n_inst, g1)
+        queries = (("a_query", g1), ("b_g1_query", g1), ("b_g2_query", g2),
+                   (l_nm, g1))
         with side_stream(self, self.device) as sched:
-            futs = stream_launch(
-                pk, (("a_query", g1), ("b_g1_query", g1),
-                     ("b_g2_query", g2), (l_nm, g1)),
-                g1, self.Fr.BITS, z_limbs, self.device, sched)
+            if self.dist is not None:
+                futs = self.dist.stream_launch(pk, queries, self.Fr.BITS,
+                                               z_limbs, sched)
+            else:
+                futs = stream_launch(pk, queries, g1, self.Fr.BITS, z_limbs,
+                                     self.device, sched)
         futs["l_query"] = futs.pop(l_nm)
         return futs
 
@@ -155,26 +168,37 @@ class Groth16:
     def _stream_launch_h(self, pk, futs, h_limbs):
         """Enqueue the h-query MSM once the quotient limbs land (host
         limbs, or the device quotient's tensor, which the side stream
-        reads after the quotient's stream has computed it)."""
+        reads after the quotient's stream has computed it, or under
+        `.dist` a rank's SigmaH block)."""
         import torch
 
+        from ...parallel.dist import SigmaH
         from ..msm_dispatch import side_stream, stream_msm_async
 
         if futs is None:
             return False
-        reads = (h_limbs,) if isinstance(h_limbs, torch.Tensor) else ()
+        t = h_limbs.limbs if isinstance(h_limbs, SigmaH) else h_limbs
+        reads = (t,) if isinstance(t, torch.Tensor) else ()
         with side_stream(self, self.device, reads) as sched, \
                 span("stream_dispatch_h"):
-            futs["h_query"] = stream_msm_async(
-                pk, "h_query", self.cfg.g1, self.Fr.BITS, h_limbs,
-                self.device, sched_stream=sched)
+            if self.dist is not None:
+                futs["h_query"] = self.dist.stream_msm_async(
+                    pk, "h_query", self.cfg.g1, self.Fr.BITS, h_limbs,
+                    sched_stream=sched)
+            else:
+                futs["h_query"] = stream_msm_async(
+                    pk, "h_query", self.cfg.g1, self.Fr.BITS, h_limbs,
+                    self.device, sched_stream=sched)
         return True
 
-    @staticmethod
-    def _stream_collect(futs, nm):
-        """Wait for one dispatched MSM and Horner-combine on the host."""
+    def _stream_collect(self, futs, nm):
+        """Wait for one dispatched MSM and Horner-combine on the host
+        (under `.dist`: after the all-gather of every rank's window
+        sums)."""
         from ..msm_dispatch import stream_collect
 
+        if self.dist is not None:
+            return self.dist.stream_collect(futs[nm])
         return stream_collect(futs[nm])
 
     # ------------------------------------------------------------------
@@ -399,6 +423,16 @@ class Groth16:
         from ...ops.matvec_tensor import device_matrices
 
         p, n = self.Fr.MODULUS, domain.n
+        dh = None
+        if self.dist is not None:
+            dh = self.dist.h_poly(self.Fr, n)
+            if dh is None:
+                # no (n1, n2) split of n for this size: every rank runs the
+                # unsharded quotient, as the reference does
+                self.dist.unsharded.append((self.Fr.NAME, n))
+        if dh is not None:
+            with span("h_dist"):
+                return self._h_dist(pk, dh, rows, z, n_inst, check_rows)
         fctx = fft_ctx(self.Fr, n, self.device)
         mats = device_matrices(pk, self.Fr, rows, n, len(z), self.device)
         with span("z_marshal"):
@@ -412,11 +446,38 @@ class Groth16:
                 m.apply(z_mont, out=evs[k])
         zh_inv = pow(domain.vanishing_poly_at(domain.coset_shift), -1, p)
         try:
-            with span("hpoly"):
+            with span("hpoly_unsharded" if self.dist is not None
+                      else "hpoly"):
                 h = hpoly(fctx, evs[0], evs[1], evs[2], zh_inv, check_rows)
         except ValueError:
             raise SNARKError("unsatisfied constraint (replayed witness)")
         return z_limbs, hybrid, h[: n - 1]
+
+    def _h_dist(self, pk, dh, rows, z, n_inst, check_rows):
+        """_h_device sharded over `.dist`'s mesh: K6 over the rows of this
+        rank's natural block (parallel/dist.py), the replayed-witness
+        check with every rank's flag (all ranks raise together), and the
+        sharded quotient.  h is this rank's sigma block, a SigmaH."""
+        from ... import native as _nat
+        from ...ops.field import upload_limbs
+        from ...parallel.dist import SigmaH
+
+        n = dh.N
+        mv = self.dist.prover_matvec(pk, self.Fr, rows, n, len(z), dh)
+        with span("z_marshal"):
+            z_limbs = _nat.scalars_to_limbs(z)
+        hybrid = self._stream_launch_bg(pk, z_limbs, n_inst)
+        with span("matvec"):
+            z_mont = dh.f.to_mont(upload_limbs(z_limbs, dh.mesh.device))
+            evs = mv.apply_all(z_mont)
+        try:
+            if check_rows:
+                mv.check(evs, check_rows)
+        except ValueError:
+            raise SNARKError("unsatisfied constraint (replayed witness)")
+        with span("hpoly"):
+            h = dh.h_block(evs)
+        return z_limbs, hybrid, SigmaH(h, dh)
 
     def _prove_commit(self, pk, n_inst, z, h, r, s, z_limbs=None,
                       hybrid=None):
@@ -437,6 +498,7 @@ class Groth16:
         import torch
 
         from ...ops.field import limbs_host
+        from ...parallel.dist import SigmaH
 
         if hybrid is not None and not isinstance(hybrid, dict):
             # background-thread launch (see prove): resolve it here —
@@ -446,8 +508,11 @@ class Groth16:
         # The h-query MSM joins the device queue as soon as the quotient
         # limbs land; the collects below then block only on whatever the
         # device hasn't finished.
-        h_streamed = (isinstance(h, (np.ndarray, torch.Tensor))
+        h_streamed = (isinstance(h, (np.ndarray, torch.Tensor, SigmaH))
                       and self._stream_launch_h(pk, hybrid, h))
+        if isinstance(h, SigmaH) and not h_streamed:
+            # a sharded h meeting the host MSM: every rank takes all of it
+            h = h.dh.gather(h.limbs)[: pk.domain_size - 1]
         if isinstance(h, torch.Tensor) and not h_streamed:
             h = limbs_host(h)
         if len(pk.a_query) >= self.STREAM_MIN and (

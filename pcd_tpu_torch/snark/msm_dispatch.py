@@ -318,16 +318,23 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                              f"{table.shape[0]} points")
         table = table[offset:offset + qn]
     sched = None
-    key = None
-    if sched_cache is not None and not on_dev:
-        key = (sctx.c, sctx.L, qn, hashlib.blake2b(sl.tobytes(),
-                                                   digest_size=16).digest())
+    key = None if sched_cache is None else schedule_key(sctx, sl)
+    if key is not None:
         sched = sched_cache.get(key)
     if sched is None:
         sched = schedule(sctx, sl, device, sched_stream)
         if key is not None:
             sched_cache[key] = sched
     return (sctx, sched.act) + sctx.window_sums_async(table, sched)
+
+
+def schedule_key(sctx, scal_limbs):
+    """The sched_cache key of host limb scalars: (c, L, n, a digest of
+    the limbs); None for device limbs, whose schedules are not shared."""
+    if isinstance(scal_limbs, torch.Tensor):
+        return None
+    return (sctx.c, sctx.L, scal_limbs.shape[0], hashlib.blake2b(
+        np.ascontiguousarray(scal_limbs).tobytes(), digest_size=16).digest())
 
 
 def schedule(sctx, scal_limbs, device, stream=None):

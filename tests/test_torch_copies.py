@@ -7,7 +7,9 @@ cache) and `native/__init__.py` (its build), and the docstrings of
 `fields/constants.py` and `fields/prime.py`, which name the reference by
 its name and not by a path, and the absolute imports of
 `parallel/farm.py`'s workers, which rebuild the pk from the port's
-configs.  An EDITED hunk is the copy's lines and a
+configs, and `parallel/pipeline.py`'s help worker, which marks a failing
+item done so that a help prove that raises makes prove_chain raise (the
+module waits for ever there).  An EDITED hunk is the copy's lines and a
 digest of the module lines they stand for, so a change on either side
 fails the test.  Reads files only; imports nothing of either package.
 """
@@ -69,6 +71,18 @@ EDITED = {
         (("    from pcd_tpu_torch.utils.rng import ChaChaRng",
           "    from pcd_tpu_torch.utils.serialize import pcd_proof_from_bytes, \\"),
          "f6e66e3a57241cbb")],
+    "parallel/pipeline.py": [
+        (("            # every item taken is marked done, the failing one "
+          "too, so the",
+          "            # main thread's join returns and raises the error",
+          "            while True:",
+          "                item = help_in.get()",
+          "                try:"), "6579bef4bc06fa66"),
+        (("                except Exception as e:",
+          "                    errors.append(e)",
+          "                    return",
+          "                finally:"), "e3b0c44298fc1c14"),
+        ((), "3777970a55c88076")],
     "fields/prime.py": [
         (("pinned at the reference's Cargo.toml:17) implements "
           "Montgomery-form scalar",), "c02cdf068eca468c")],
