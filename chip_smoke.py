@@ -10,8 +10,8 @@ Phases, one output line each, then a `kernels` JSON line and the final
 status line:
   1  card and build: nvidia-smi's name and power limit; the C++ host tier
      (g++) and the CUDA kernels (one nvcc per source, the device
-     scheduler's P1 and the quotient's K5-K7 too) built in parallel from the checkout, with
-     ptxas' register and spill report;
+     scheduler's P1 and P2 and the quotient's K5-K7 too) built in parallel
+     from the checkout, with ptxas' register and spill report;
   2  every kernel against its plain torch version on the card, for the
      four field forms of the main path (MNT4/MNT6 G1 over Fq, MNT4 G2 over
      Fq2, MNT6 G2 over Fq3): K1 on 25 windows x 8192 lanes, T = 8, with
@@ -42,8 +42,8 @@ status line:
      replayed through K4 and through finish_steps in turns; then six more
      warm steps, the scheduler (msm_dispatch.SCHEDULER) in three adjacent
      host/device pairs, alternating which runs first, each step with K1
-     and K4 exactly once per commitment MSM (each P1 kernel twice a prove
-     under "device", never under "host"), the last proof of each
+     and K4 exactly once per commitment MSM (each P1 and P2 kernel twice a
+     prove under "device", never under "host"), the last proof of each
      verified; per scheduler the
      medians and ranges of the step, stream_dispatch, stream_dispatch_h,
      the MSM collect (groth16/msm) and the schedule spans, and the
@@ -58,7 +58,9 @@ status line:
      h_poly, matvec and hpoly spans) and the verdict by the same rule;
      then one warm step under each quotient tier inside device_trace
      (torch.profiler; chiprun_out/device_trace/), with the card's busy
-     and idle shares of the step;
+     and idle shares of the step, and one more under the device quotient
+     and the device scheduler, with each P1 and P2 kernel's launches and
+     kernel time in it;
   5  each kernel again on the inputs of its first launch in the warm step
      (K1 and K4: the a-query or b_g2 MSM), exactly against its plain
      version, with CUDA-event times, K4 beside finish_steps on the same
@@ -92,17 +94,22 @@ status line:
   9  the device scheduler (ops/msm_stream_dev.py) at c = 12, L = 8192:
      a 2^18-point MNT4 G1 MSM and a 2^16-point MNT4 G2 MSM, dense and
      low-entropy scalars (digits in two windows only), each equal to the
-     C++ Pippenger with K1, K4 and each P1 kernel launched once, and P1
-     (order, signs, counts) exactly equal to the plain P1 (the digits, a
-     stable torch.sort and a searchsorted); the G1 schedules equal the
-     host placement law (the numpy schedule at the device's T) and the
+     C++ Pippenger with K1, K4 and each P1 and P2 kernel launched once,
+     P1 (order, signs, counts) exactly equal to the plain P1 (the digits,
+     a stable torch.sort and a searchsorted), and each P2 kernel exactly
+     equal to its plain version on the same inputs and the placement to
+     place_plain (the torch-ops law); the G1 schedules equal the host
+     placement law (the numpy schedule at the device's T) and the
      low-entropy ones leave the empty windows out; on the dense G1
      scalars each P1 kernel exactly against its plain version on the
-     same inputs, with CUDA-event ms, bound and library call, and P1's
-     CUDA-event ms against its bound and the torch sort and searchsorted;
-     the schedule's CUDA-event ms (upload to placement, the histogram
-     fetch included) against the C++ schedule's wall ms, in turns, with
-     the upload, P1 and placement times beside them;
+     same inputs, with CUDA-event ms, bound and library call, P1's
+     CUDA-event ms against its bound and the torch sort and searchsorted,
+     and each P2 kernel's and the placement's against their bound by
+     bytes and the torch-ops placement's; the schedule's CUDA-event ms
+     (upload to placement, the histogram fetch included) against the C++
+     schedule's wall ms, in turns, and split by events between its
+     stages (upload, P1, histogram fetch with _pick_shapes, P2, and what
+     is left);
  10  the device quotient, after phase 4: K5 (every pass of a forward
      transform, its passes and tile printed, at most 3 launches a
      transform in every direction; every prologue x epilogue
@@ -121,7 +128,9 @@ status line:
      (utils/profiling.device_trace), each bound also by the count of
      every entry and of r - 1 products at every level.  Without phase 4
      only the first part runs;
- 11  the device keygen, after phase 9 and before the chains: K8
+ 11  the device keygen, inside phase 1 once K8's source has built, while
+     the other kernels still build (K4's nvcc alone takes minutes; the
+     host timings below share the host with it), before the chains: K8
      (csrc/fixed_base.cu) on 2^14 scalars of each of the four forms (0, 1,
      r - 1, all-0xFF low windows, the integers whose top window wraps onto
      +-T so that the last add doubles or cancels, random ones), exactly
@@ -152,13 +161,13 @@ status line:
      the universal setup (reference tests/mnt4_marlin.rs:141-204):
      universal setup, index, base case, step 2, both verified, and the
      negative check.  Hours of host work: never in the default run.
-Phase 1 always runs, phases 9 and 11 run after phase 3, before the
-chains, and phases 10 and 12 between phases 4 and 6.  K8's records come from
+Phase 1 always runs, phase 11 inside it, phase 9 after phase 3, before
+the chains, and phases 10 and 12 between phases 4 and 6.  K8's records come from
 phase 11; their `launches` are the setups' (phases 4, 6 and 7).  K2's and K3's records come from phase
 2; their `launches` sum their launches over the chains run (null when
-none ran).  The P1 kernels' records come from phase 9; their `launches`
-are those of phase 4's device-scheduled warm steps (phase 9's own when
-phase 4 did not run).  K5-K7's records come from phase 10; their `launches`
+none ran).  The P1 and P2 kernels' records come from phase 9; their
+`launches` are those of phase 4's device-scheduled warm steps (phase 9's
+own when phase 4 did not run).  K5-K7's records come from phase 10; their `launches`
 are those of a device-quotient warm step of their chain (mnt4_groth16's
 from phase 4, mnt4_gm17's from phase 6; null when it did not run).
 Phases 4, 6 and 7 set up under msm_dispatch.KEYGEN's default, and phases
@@ -175,7 +184,6 @@ import random
 import re
 import subprocess
 import sys
-import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -227,6 +235,10 @@ REPLACES = {
     ("p1_hist", 0): "pcd_tpu/ops/msm_stream_dev.py:116",
     ("p1_scan", 0): "pcd_tpu/ops/msm_stream_dev.py:116",
     ("p1_scatter", 0): "pcd_tpu/ops/msm_stream_dev.py:112",
+    # no Pallas site: the placement of DevSchedMSM._p2 (lines 171-196 and
+    # 227-229), and its per-round ranks and signed rows (210-216)
+    ("p2_buckets", 0): "pcd_tpu/ops/msm_stream_dev.py:172",
+    ("p2_place", 0): "pcd_tpu/ops/msm_stream_dev.py:210",
     # no Pallas site: the device quotient's XLA programs
     ("ntt_pass", 0): "pcd_tpu/ops/fft_tensor.py:74",
     ("spmv_rows", 0): "pcd_tpu/ops/matvec_tensor.py:77",
@@ -245,6 +257,8 @@ SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "p1_hist": "pcd_tpu_torch/csrc/sched_digits.cu",
            "p1_scan": "pcd_tpu_torch/csrc/sched_digits.cu",
            "p1_scatter": "pcd_tpu_torch/csrc/sched_digits.cu",
+           "p2_buckets": "pcd_tpu_torch/csrc/sched_place.cu",
+           "p2_place": "pcd_tpu_torch/csrc/sched_place.cu",
            "ntt_pass": "pcd_tpu_torch/csrc/ntt.cu",
            "spmv_rows": "pcd_tpu_torch/csrc/spmv.cu",
            "fp_vec": "pcd_tpu_torch/csrc/fp_vec.cu",
@@ -347,7 +361,13 @@ def kernel_ms(fn, logdir, launches=None, reps=5):
     return busy / 1e3 / reps
 
 
-def phase_build():
+def phase_build(meanwhile=None):
+    """nvidia-smi's line, the CUDA kernels' builds started (ops/kernels.py:
+    one nvcc a source, each library loadable as soon as its own ends),
+    the C++ host tier built meanwhile, then `meanwhile()` (phase 11,
+    whose K8 builds in a fraction of K4's time) while the rest build; the
+    build report once every nvcc has ended.  Returns (the card's line,
+    what meanwhile returned)."""
     from pcd_tpu_torch import native
     from pcd_tpu_torch.ops import kernels
 
@@ -357,23 +377,25 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     print(card, flush=True)
     t0 = time.perf_counter()
-    got = {}
-    th = threading.Thread(target=lambda: got.update(ok=native.available()))
-    th.start()
-    info = kernels.build()
-    th.join()
-    t_all = time.perf_counter() - t0
-    if not got.get("ok"):
-        raise RuntimeError("the C++ host tier failed to build")
+    kernels.build(wait=False)
+    try:
+        if not native.available():
+            raise RuntimeError("the C++ host tier failed to build")
+        t_cpp = time.perf_counter() - t0
+        out = meanwhile() if meanwhile is not None else None
+    finally:
+        info = kernels.build()       # every nvcc ended, or raises
+    t_all = max([t_cpp] + [rec["seconds"] for rec in info.values()])
     for name, rec in info.items():
         for line in rec["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "Function properties")):
                 say(1, f"{name}: {line.strip()}")
-    say(1, "built C++ tier + " + ", ".join(
+    say(1, f"built C++ tier {t_cpp:.1f}s + " + ", ".join(
         f"{n} {rec['seconds']:.1f}s" for n, rec in info.items())
-        + f" in {t_all:.1f}s wall")
-    return card
+        + f" in {t_all:.1f}s wall"
+        + (", phase 11 meanwhile" if meanwhile is not None else ""))
+    return card, out
 
 
 def form_cases():
@@ -804,6 +826,7 @@ def phase_keygen(results, dev="cuda", phase=11):
 
     dev = torch.device(dev)
     rng = random.Random(11)
+    kernels.lib("fixed_base")      # its build ended (the others may not)
     log = kernels.BUILD_INFO.get("fixed_base", {}).get("ptxas", "")
     recs = {}
     for form, cfg, grp in form_cases():
@@ -1069,9 +1092,115 @@ def p1_records(dm, W, dev):
     return recs, p1_ms, plain_p1, lib_ms, bound
 
 
+def p2_exact(dm, p1_out, what):
+    """P2 on P1's output: place (the two kernels) against place_plain,
+    and each kernel against its plain version on the same inputs, element
+    for element."""
+    import torch
+
+    order, signs, counts = p1_out
+    act, T, _ = dm._pick_shapes(counts.cpu().numpy())
+    got = dm.place(order, signs, counts, act, T)
+    steps = dm.p2_buckets(counts, act, T)
+    _, loads, _, lanes = steps
+    checks = [("place", got, dm.place_plain(order, signs, counts, act, T)),
+              ("p2_buckets", steps, dm.p2_buckets_plain(counts, act, T)),
+              ("p2_place", (dm.p2_place(order, signs, act, T, loads,
+                                        lanes),),
+               (dm.p2_place_plain(order, signs, act, T, loads, lanes),))]
+    for nm, a, b in checks:
+        if any(x.dtype != y.dtype or not torch.equal(x, y)
+               for x, y in zip(a, b)):
+            raise AssertionError(f"P2 {what}: {nm} != its plain version")
+
+
+def p2_records(dm, p1_out, act, T, dev):
+    """Each P2 kernel on the dense schedule (p2_exact checked it): CUDA-
+    event ms queued behind a spinning kernel, plain ms (one call), bound
+    by bytes: each input read once and each output written once, of
+    order and signs the entries this schedule places (the lanes' loads);
+    no one PyTorch call computes either, so library_ms is null.  Returns
+    (the records, place's ms queued and as launched, place_plain's (the
+    torch-ops law) as launched: its host work outlasts a queue, P2's
+    bound in ms)."""
+    order, signs, counts = p1_out
+    s = dm.sctx
+    nact, L, B = len(act), s.L, s.B
+    bidx, loads, runrem, lanes = dm.p2_buckets(counts, act, T)
+    live = int(loads.sum())                    # placed entries
+    outs = nact * B * 4 + nact * L * 8         # bidx, loads, runrem
+    timing = {
+        "p2_buckets": (lambda: dm.p2_buckets(counts, act, T),
+                       lambda: dm.p2_buckets_plain(counts, act, T),
+                       nact * (B + 1) * 4 + outs + nact * L * 8),
+        "p2_place": (lambda: dm.p2_place(order, signs, act, T, loads, lanes),
+                     lambda: dm.p2_place_plain(order, signs, act, T, loads,
+                                               lanes),
+                     nact * L * 12 + live * 5 + nact * T * L * 4)}
+    recs = []
+    for k, (fn, plain, nbytes) in timing.items():
+        ms = device_ms(fn, 10, dev, queued=True)
+        _, plain_ms = timed_plain(plain, dev)
+        recs.append(record(k, dm.form, 0, 0, ms, plain_ms, nbytes, 0))
+
+    def place():
+        return dm.place(order, signs, counts, act, T)
+
+    def plain():
+        return dm.place_plain(order, signs, counts, act, T)
+    bound = (nact * (B + 1) * 4 + outs + live * 5 + nact * T * L * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    return (recs, (device_ms(place, 10, dev, queued=True),
+                   device_ms(place, 10, dev)), device_ms(plain, 5, dev),
+            bound)
+
+
+SCHED_STAGES = ("upload", "p1", "fetch_pick", "p2", "left")
+
+
+def staged_schedule(dm, limbs, dev):
+    """One device schedule as msm_dispatch runs it (the upload, then
+    DevSchedMSM.schedule's steps), a CUDA event after each stage: {stage:
+    ms} over SCHED_STAGES (the histogram fetch with the overflow check
+    and _pick_shapes as fetch_pick; left: the DevSchedule's construction
+    and return).  The host clock on the CPU."""
+    import torch
+
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedule
+
+    def mark():
+        if dev.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    sync(dev)
+    marks = [mark()]
+    W = dm.upload(limbs, dev)
+    marks.append(mark())
+    order, signs, counts = dm.p1(W)
+    marks.append(mark())
+    counts_h = counts.cpu().numpy()
+    if counts_h[:, -1].any():
+        raise ValueError("scalar exceeds declared scalar_bits")
+    act, T, maxrun = dm._pick_shapes(counts_h)
+    marks.append(mark())
+    tensors = dm.place(order, signs, counts, act, T)
+    marks.append(mark())
+    DevSchedule(act, T, maxrun, W.device, tensors)
+    marks.append(mark())
+    sync(dev)
+    if dev.type != "cuda":
+        return {k: (b - a) * 1e3 for k, a, b in zip(SCHED_STAGES, marks,
+                                                     marks[1:])}
+    return {k: a.elapsed_time(b) for k, a, b in zip(SCHED_STAGES, marks,
+                                                     marks[1:])}
+
+
 def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     """The device scheduler at the chains' c = 12, L = 8192 (see the module
-    docstring, phase 9).  Appends the P1 kernels' `kernels` records
+    docstring, phase 9).  Appends the P1 and P2 kernels' `kernels` records
     (their launches those of this phase; main() puts phase 4's there when
     it ran)."""
     import statistics
@@ -1084,7 +1213,7 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     from pcd_tpu_torch.ops import ec
     from pcd_tpu_torch.ops.fixed_base import raw_fixed_base
     from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
-    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS, DevSchedMSM
+    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS, DevSchedMSM
 
     dev = torch.device(dev)
     # on the CPU (a rehearsal) the wrappers count plain-version calls
@@ -1092,7 +1221,7 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
     cfg = M.mnt_cycle().main
     r = cfg.Fr.MODULUS
     rng = np.random.default_rng(9)
-    launches = dict.fromkeys(P1_KERNELS, 0)
+    launches = dict.fromkeys(SCHED_KERNELS, 0)
     for grp, log in (("g1", log_n), ("g2", log_n2)):
         curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
         n = 1 << log
@@ -1110,11 +1239,11 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
             ec.reset_launch_counts()           # this MSM starts
             got = dm.msm_limbs(table, limbs)
             counts = counter()                 # this MSM ended
-            for k in P1_KERNELS:
+            for k in SCHED_KERNELS:
                 launches[k] += counts.get((k, dm.form), 0)
             expect = {("madd_accumulate", curve.name): 1,
                       ("bucket_finish", curve.name): 1}
-            expect.update({(k, dm.form): 1 for k in P1_KERNELS})
+            expect.update({(k, dm.form): 1 for k in SCHED_KERNELS})
             if counts != expect:
                 raise AssertionError(f"devsched {curve.name} {kind}: "
                                      f"launches {counts}, expected {expect}")
@@ -1122,7 +1251,8 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                 raise AssertionError(f"devsched 2^{log} {curve.name} {kind} "
                                      f"MSM != C++ Pippenger")
             W = dm.upload(limbs, dev)
-            p1_exact(dm, W, f"2^{log} {curve.name} {kind}")
+            what = f"2^{log} {curve.name} {kind}"
+            p2_exact(dm, p1_exact(dm, W, what), what)
             sched = dm.schedule(W)
             if kind == "low-entropy" and list(sched.act) != [0, 5]:
                 raise AssertionError(f"low-entropy scalars: active windows "
@@ -1147,9 +1277,10 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                                              f"{sched.T}")
                 msg = (f"; schedule == host placement law at T = {sched.T} "
                        f"(numpy oracle {time.perf_counter() - t0:.1f}s)")
-            say(phase, f"2^{log} {curve.name} {kind}: device-scheduled MSM "
-                       f"== C++ Pippenger, K1, K4 and each P1 kernel once; "
-                       f"P1 == plain P1 (order, signs, counts); "
+            say(phase, f"{what}: device-scheduled MSM == C++ Pippenger, K1, "
+                       f"K4 and each P1 and P2 kernel once; P1 == plain P1 "
+                       f"(order, signs, counts); each P2 kernel == its "
+                       f"plain version, place == place_plain; "
                        f"{len(sched.act)} of {sctx.nwin} windows active, "
                        f"T = {sched.T}, maxrun {sched.maxrun}" + msg)
         if grp != "g1":
@@ -1158,10 +1289,16 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
         W = dm.upload(limbs, dev)
         recs, p1_ms, plain_ms, lib_ms, bound = p1_records(dm, W, dev)
         results.extend(recs)
+        p1_out = dm.p1(W)
+        act, T, _ = dm._pick_shapes(p1_out[2].cpu().numpy())
+        recs2, place_ms, torch_ms, bound2 = p2_records(dm, p1_out, act, T,
+                                                       dev)
+        results.extend(recs2)
         # the schedule: C++ (host wall) against the device's (CUDA events
-        # from the upload to the placement, histogram fetch included), in
-        # turns, and the device steps alone
+        # from the upload to the DevSchedule, histogram fetch included, an
+        # event between each two stages), in turns
         t = {"cpp": [], "dev": [], "dev_wall": []}
+        staged = []
         for who in ("cpp", "dev", "dev", "cpp", "cpp", "dev"):
             sync(dev)
             t0 = time.perf_counter()
@@ -1169,27 +1306,12 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                 sctx.schedule_native(limbs)
                 t["cpp"].append((time.perf_counter() - t0) * 1e3)
                 continue
-            if dev.type != "cuda":                 # a CPU rehearsal
-                dm.schedule(dm.upload(limbs, dev))
-                t["dev_wall"].append((time.perf_counter() - t0) * 1e3)
-                t["dev"].append(t["dev_wall"][-1])
-                continue
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            dm.schedule(dm.upload(limbs, dev))
-            b.record()
-            sync(dev)
+            staged.append(staged_schedule(dm, limbs, dev))
             t["dev_wall"].append((time.perf_counter() - t0) * 1e3)
-            t["dev"].append(a.elapsed_time(b))
-        order, signs_, counts = dm.p1(W)
-        act, T, _ = dm._pick_shapes(counts.cpu().numpy())
-        parts = {
-            "upload": device_ms(lambda: dm.upload(limbs, dev), 3, dev),
-            "p1": p1_ms[1],
-            "placement": device_ms(
-                lambda: dm.place(order, signs_, counts, act, T), 5, dev)}
+            t["dev"].append(sum(staged[-1].values()))
         med = {k: statistics.median(v) for k, v in t.items()}
+        split = {k: statistics.median(st[k] for st in staged)
+                 for k in SCHED_STAGES}
         say(phase, f"P1[{dm.form}] on 2^{log} scalars: each kernel exact "
                    f"against its plain version; P1 {p1_ms[0]:.4f} ms CUDA "
                    f"events queued ({p1_ms[1]:.4f} ms as launched), bound "
@@ -1200,13 +1322,31 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                        {rec["name"]: [round(rec["ms"], 4),
                                       round(rec["bound_ms"], 4)]
                         for rec in recs}))
+        placed = int(p1_out[2][act, 1:-1].sum())
+        say(phase, f"P2[{dm.form}] on the 2^{log} dense schedule "
+                   f"({len(act)} windows, T = {T}, {placed} placed "
+                   f"entries): each kernel exact against its plain version; "
+                   f"P2 {place_ms[0]:.4f} ms CUDA events queued "
+                   f"({place_ms[1]:.4f} ms as launched), bound {bound2:.4f} "
+                   f"ms (bytes, {100 * bound2 / place_ms[0]:.1f}% of it), "
+                   f"torch-ops place (place_plain) {torch_ms:.4f} ms as "
+                   f"launched; kernels [ms, bound ms, plain ms]: "
+                   + json.dumps(
+                       {rec["name"]: [round(rec["ms"], 4),
+                                      round(rec["bound_ms"], 4),
+                                      round(rec["plain_ms"], 2)]
+                        for rec in recs2}))
         say(phase, f"2^{log} schedule, medians of 3 in turns: device "
                    f"{med['dev']:.3f} ms CUDA events ({med['dev_wall']:.3f} "
                    f"ms wall) vs C++ {med['cpp']:.3f} ms wall; all "
                    + json.dumps({k: [round(x, 3) for x in v]
                                  for k, v in t.items()})
-                   + "; device parts (ms): " + json.dumps(
-                       {k: round(v, 4) for k, v in parts.items()}))
+                   + "; split (ms, each stage's median over the device "
+                     "turns): " + json.dumps(
+                         {k: round(v, 4) for k, v in split.items()})
+                   + "; by turn: " + json.dumps(
+                       [{k: round(v, 4) for k, v in st.items()}
+                        for st in staged]))
     for rec in results:
         kernel = rec["name"].split("[")[0]
         if kernel in launches:
@@ -1430,13 +1570,14 @@ def check_once_per_msm(counts, forms, what, proves=1):
     """K1 and K4 of every form exactly once per commitment MSM of
     `proves` proves of each side, K2 and K3 never; each P1 kernel once per
     schedule (P1_PER_PROVE a prove of each side) under the device
-    scheduler, never under the host one."""
-    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
+    scheduler, never under the host one; each P2 kernel as each P1
+    kernel (every schedule of a prove has an active window)."""
+    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
 
     want = (proves * P1_PER_PROVE * len(forms) // 2
             if msm_dispatch.SCHEDULER == "device" else 0)
-    for k in P1_KERNELS:
+    for k in SCHED_KERNELS:
         got = sum(v for (kk, _), v in counts.items() if kk == k)
         if got != want:
             raise AssertionError(f"{what}: {k} launched {got} times under "
@@ -1487,19 +1628,19 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
                phase, turns):
     """Warm steps with msm_dispatch.<knob> ("SCHEDULER" or "QUOTIENT") set
     in `turns`: each its launches counted alone (K1 and K4 once per
-    commitment MSM; each P1 kernel twice a prove under the device
+    commitment MSM; each P1 and P2 kernel twice a prove under the device
     scheduler and never under the host one; K5, K6 and K7 under the
     device quotient only, K5 and K7 as check_quotient_launches says) and
     its spans; the last proof of each setting
     verified.  The verdict: "device" when its step is shorter in at
     least nine tenths of the adjacent pairs and its median shorter than
     the host's by more than the host steps' interquartile distance.
-    Returns ({setting: {metric: [median, min, max] s}}, {P1 kernel: its
-    launches in all}, the launch counts of the first "device" step)."""
+    Returns ({setting: {metric: [median, min, max] s}}, {P1 or P2 kernel:
+    its launches in all}, the launch counts of the first "device" step)."""
     import statistics
 
     from pcd_tpu_torch.ops import ec
-    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
+    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
     from pcd_tpu_torch.utils import profiling
 
@@ -1507,7 +1648,7 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     one, two = F.from_int(1), F.from_int(2)
     default = getattr(msm_dispatch, knob)
     runs, last = {}, {}
-    p1_all, dev_counts = dict.fromkeys(P1_KERNELS, 0), None
+    p1_all, dev_counts = dict.fromkeys(SCHED_KERNELS, 0), None
     profiling.enable()
     try:
         for val in turns:
@@ -1624,10 +1765,31 @@ def card_busy(trace_path, wall_s):
             "top_kernels_ms": {k: round(v / 1e3, 3) for k, v in top}}
 
 
+def sched_kernel_ms(trace_path):
+    """{P1 or P2 kernel: [launches, summed ms]} in a torch.profiler
+    trace, by the kernels' names."""
+    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
+
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    out = {k: [0, 0.0] for k in SCHED_KERNELS}
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        for k in SCHED_KERNELS:
+            if f"{k}_kernel" in e.get("name", ""):
+                out[k][0] += 1
+                out[k][1] += float(e["dur"]) / 1e3
+    return out
+
+
 def traced_steps(pcd, pk, pred, proof_1, rng, dev, phase):
-    """One warm step under each quotient tier inside device_trace (a
-    torch.profiler capture, written under chiprun_out/device_trace/ and
-    gzipped): the card's busy and idle shares of each step."""
+    """One warm step under each quotient tier, and one more under the
+    device quotient and the device scheduler ("device_sched"), inside
+    device_trace (a torch.profiler capture, written under
+    chiprun_out/device_trace/ and gzipped): the card's busy and idle
+    shares of each step, and the device-scheduled step's P1 and P2
+    kernels' launches and time."""
     import gzip
     import shutil
 
@@ -1636,11 +1798,13 @@ def traced_steps(pcd, pk, pred, proof_1, rng, dev, phase):
 
     F = pcd.ic.main_field
     one, two = F.from_int(1), F.from_int(2)
-    default = msm_dispatch.QUOTIENT
+    default = msm_dispatch.QUOTIENT, msm_dispatch.SCHEDULER
     out = {}
     try:
-        for tier in ("host", "device"):
-            msm_dispatch.QUOTIENT = tier
+        for tier, quot, sched in (("host", "host", "host"),
+                                  ("device", "device", "host"),
+                                  ("device_sched", "device", "device")):
+            msm_dispatch.QUOTIENT, msm_dispatch.SCHEDULER = quot, sched
             logdir = os.path.join(HERE, "chiprun_out", "device_trace", tier)
             sync(dev)
             with device_trace(logdir):
@@ -1650,14 +1814,18 @@ def traced_steps(pcd, pk, pred, proof_1, rng, dev, phase):
                 wall = time.perf_counter() - t0
             path = os.path.join(logdir, "trace.json")
             out[tier] = dict(card_busy(path, wall), step_s=wall)
+            if sched == "device":
+                out[tier]["sched_kernels"] = sched_kernel_ms(path)
             with open(path, "rb") as src, gzip.open(path + ".gz",
                                                      "wb") as dst:
                 shutil.copyfileobj(src, dst)
             os.remove(path)
     finally:
-        msm_dispatch.QUOTIENT = default
+        msm_dispatch.QUOTIENT, msm_dispatch.SCHEDULER = default
     for tier, rec in out.items():
-        say(phase, f"device_trace of a warm step, {tier} quotient: "
+        what = {"host": "host quotient", "device": "device quotient",
+                "device_sched": "device quotient and scheduler"}[tier]
+        say(phase, f"device_trace of a warm step, {what}: "
                    + json.dumps({k: (round(v, 4) if isinstance(v, float)
                                      else v) for k, v in rec.items()}))
     return out
@@ -1697,7 +1865,7 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
     "trace": traced_steps' result or None, "chain": (pcd, pk)}."""
     from pcd_tpu_torch import configs
     from pcd_tpu_torch.ops import ec
-    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
+    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
     from pcd_tpu_torch.utils import profiling
     from pcd_tpu_torch.utils.rng import ChaChaRng
@@ -1793,8 +1961,8 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
              for grp, c in (("g1", cfg.g1), ("g2", cfg.g2))]
     missing = [f"{k}[{f}]" for k in ("madd_accumulate", "bucket_finish")
                for f, _, _ in forms if counts.get((k, f), 0) <= 0]
-    if msm_dispatch.SCHEDULER == "device":       # P1 on the main path
-        missing += [k for k in P1_KERNELS
+    if msm_dispatch.SCHEDULER == "device":       # P1, P2 on the main path
+        missing += [k for k in SCHED_KERNELS
                     if not any(kk == k for kk, _ in counts)]
     if missing:
         raise AssertionError("kernels not launched on the main path: "
@@ -2746,7 +2914,7 @@ def marlin_stage(what, calls, before, after, form, stream_min, most,
     fourth item of ffts); no other launch.  Returns the number of stream
     MSMs."""
     from pcd_tpu_torch.ops.fft_tensor import fft_ctx
-    from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS
+    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
 
     streamed = [c for c in calls if c[0] == "stream"]
@@ -2775,10 +2943,10 @@ def marlin_stage(what, calls, before, after, form, stream_min, most,
                                  f"{len(sizes)} device transforms, expected "
                                  f"{want}")
     p1 = {k: sum(delta.pop(kk) for kk in list(delta) if kk[0] == k)
-          for k in P1_KERNELS}
+          for k in SCHED_KERNELS}
     each = len(streamed) if msm_dispatch.SCHEDULER == "device" else 0
-    if p1 != dict.fromkeys(P1_KERNELS, each):
-        raise AssertionError(f"{what}: P1 launches {p1} for "
+    if p1 != dict.fromkeys(SCHED_KERNELS, each):
+        raise AssertionError(f"{what}: P1 and P2 launches {p1} for "
                              f"{len(streamed)} stream MSMs under the "
                              f"{msm_dispatch.SCHEDULER!r} scheduler")
     want = {(k, form): len(streamed) for k in ("madd_accumulate",
@@ -3068,7 +3236,15 @@ def main(argv):
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
     results = []
-    card = phase_build()
+
+    def keygen():                  # before the chains, whose setups run K8
+        t0 = time.perf_counter()
+        k8, _ = phase_keygen(results)
+        say(11, f"device keygen: {time.perf_counter() - t0:.1f}s, while "
+                f"the other kernels built")
+        return k8
+    card, k8 = phase_build(keygen if 11 in phases else None)
+    k8 = k8 or {}
     k3 = phase_kernels() if 2 in phases else []
     results += k3
     if 3 in phases:
@@ -3077,11 +3253,6 @@ def main(argv):
         t0 = time.perf_counter()
         phase_devsched(results)
         say(9, f"device scheduler: {time.perf_counter() - t0:.1f}s")
-    k8 = {}
-    if 11 in phases:               # before the chains, whose setups run K8
-        t0 = time.perf_counter()
-        k8, _ = phase_keygen(results)
-        say(11, f"device keygen: {time.perf_counter() - t0:.1f}s")
     chain_counts, quot_counts, took4, pend = [], {}, None, []
     keygens = {}                   # K8 launches of the setups, by form
     after4 = {10: 4.5, 12: 4.7}    # after phase 4: its pk and warm step
@@ -3102,7 +3273,7 @@ def main(argv):
             quot_counts[name] = took["quot_counts"]
             for f, v in took["keygen"].items():
                 keygens[f] = keygens.get(f, 0) + v
-            if took["sched"] is not None:   # P1 on the path
+            if took["sched"] is not None:   # P1 and P2 on the path
                 took4 = took
                 for rec in results:
                     kernel = rec["name"].split("[")[0]

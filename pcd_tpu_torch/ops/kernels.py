@@ -4,9 +4,10 @@ Each source is compiled by hand with nvcc for sm_90a into a shared
 library with a plain C interface and loaded through ctypes: seconds of
 build, where a PyTorch C++ extension takes minutes.  The build happens at
 first use, one nvcc per source started together, into csrc/build/, keyed
-by a hash of the sources and flags; nothing is compiled when a module is
-imported (the CPU tests import every module and have no nvcc).  There is
-no fallback: a failed build or a refused launch raises.
+by a hash of the sources and flags, and a library loads as soon as its
+own nvcc has ended; nothing is compiled when a module is imported (the
+CPU tests import every module and have no nvcc).  There is no fallback:
+a failed build or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ SOURCES = {"madd_accumulate": "madd_accumulate.cu",
            "madd": "madd.cu",
            "bucket_finish": "bucket_finish.cu",
            "sched_digits": "sched_digits.cu",
+           "sched_place": "sched_place.cu",
            "ntt": "ntt.cu",
            "spmv": "spmv.cu",
            "fp_vec": "fp_vec.cu",
@@ -35,8 +37,11 @@ SOURCES = {"madd_accumulate": "madd_accumulate.cu",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()         # starting builds
+_load_lock = threading.Lock()    # loading libraries
 _libs: dict = {}
+_ended: dict = {}       # name -> threading.Event set when its nvcc ends
+_failed: dict = {}      # name -> the output of its failed nvcc
 BUILD_INFO: dict = {}   # name -> {"seconds", "ptxas", "so"} of this process
 
 
@@ -60,52 +65,56 @@ def _so_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build() -> dict:
-    """Compile every kernel source that has no up-to-date library, all
-    in parallel; returns BUILD_INFO.  Raises with nvcc's output on a
-    failed build."""
+def build(wait: bool = True) -> dict:
+    """Start nvcc for every kernel source that has no up-to-date library
+    and none building, all in parallel.  Each library is installed as
+    soon as its own nvcc ends, so lib() loads it while the others still
+    build.  wait: return BUILD_INFO once every build has ended, raising
+    with nvcc's output on a failed one; else return at once."""
     with _lock:
         todo = {n: _so_path(n) for n in SOURCES}
         todo = {n: so for n, so in todo.items()
-                if n not in BUILD_INFO and not os.path.exists(so)}
-        if not todo:
-            return BUILD_INFO
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = nvcc_path()
-        procs = {}
-        t0 = time.perf_counter()
-        for n, so in todo.items():
-            tmp = f"{so}.{os.getpid()}.tmp"
-            procs[n] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp,
-                 os.path.join(CSRC, SOURCES[n])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, so)
-        # a waiter a process, so each nvcc's seconds are its own end and
-        # not that of the slowest one read before it
-        done = {}
-
-        def wait(n, proc):
-            log, _ = proc.communicate()
-            done[n] = (time.perf_counter() - t0, log)
-
-        waits = [threading.Thread(target=wait, args=(n, proc))
-                 for n, (proc, _, _) in procs.items()]
-        for th in waits:
-            th.start()
-        for th in waits:
-            th.join()
-        failed = []
-        for n, (proc, tmp, so) in procs.items():
-            secs, log = done[n]
-            if proc.returncode != 0:
-                failed.append(f"{n}:\n{log[-4000:]}")
-                continue
-            os.replace(tmp, so)
-            BUILD_INFO[n] = {"seconds": secs, "ptxas": log, "so": so}
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+                if n not in BUILD_INFO and not os.path.exists(so)
+                and not (n in _ended and not _ended[n].is_set())}
+        if todo:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            nvcc = nvcc_path()
+            t0 = time.perf_counter()
+            for n, so in todo.items():
+                tmp = f"{so}.{os.getpid()}.tmp"
+                proc = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp,
+                     os.path.join(CSRC, SOURCES[n])],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                _failed.pop(n, None)
+                _ended[n] = threading.Event()
+                # a waiter a process (not a daemon: the interpreter waits
+                # for every nvcc it started), so each nvcc's seconds are
+                # its own end and not that of the slowest one before it
+                threading.Thread(target=_install,
+                                 args=(n, proc, tmp, so, t0)).start()
+        pending = list(_ended.values())
+    if not wait:
         return BUILD_INFO
+    for ev in pending:
+        ev.wait()
+    if _failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(
+            f"{n}:\n{log}" for n, log in _failed.items()))
+    return BUILD_INFO
+
+
+def _install(name, proc, tmp, so, t0):
+    """Wait for one nvcc; install its library or keep its output."""
+    log, _ = proc.communicate()
+    if proc.returncode == 0:
+        os.replace(tmp, so)
+        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                            "ptxas": log, "so": so}
+    else:
+        _failed[name] = log[-4000:]
+    _ended[name].set()
 
 
 # the C entry of each kernel source: (function, restype, argtypes)
@@ -130,6 +139,12 @@ ENTRIES = {
                      ("pcd_p1_scatter", _ci,
                       [_vp, _ci, _cl, _ci, _vp, _vp, _vp, _vp]),
                      ("pcd_p1_tile", _ci, []), ("pcd_p1_warps", _ci, [])],
+    "sched_place": [("pcd_p2_buckets", _ci,
+                     [_vp, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
+                      _vp, _vp]),
+                    ("pcd_p2_place", _ci,
+                     [_vp, _vp, _ci, _cl, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
+                      _vp])],
     "ntt": [("pcd_ntt_pass", _ci,
              [_vp, _vp, _vp, _vp, _cl, _ci, _vp, _vp, _vp, _ci, _vp, _cl,
               _ci, _vp, _cl])],
@@ -154,13 +169,19 @@ def load(so: str, name: str) -> ctypes.CDLL:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source `name`, built on first use."""
+    """The loaded library of kernel source `name`, built on first use:
+    it waits for that source's nvcc alone, the others building on."""
     hit = _libs.get(name)
     if hit is not None:
         return hit
-    build()
+    build(wait=False)
+    ended = _ended.get(name)
+    if ended is not None:
+        ended.wait()
+    if name in _failed:
+        raise RuntimeError(f"nvcc failed for {name}:\n{_failed[name]}")
     so = _so_path(name)
-    with _lock:
+    with _load_lock:
         if name not in _libs:
             _libs[name] = load(so, name)
         return _libs[name]

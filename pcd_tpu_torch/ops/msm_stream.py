@@ -345,6 +345,26 @@ class StreamMSMCtx:
         return self.horner_host(
             self.collect(*self.window_sums_async(table, sched)))
 
+    def operands(self, points, scalars, device=None):
+        """Host points and int scalars -> (their table on `device` (None:
+        the card), the scalars' (n, NL) u64 limb rows)."""
+        from .. import native
+        from ..device import resolve_device
+
+        if len(points) != len(scalars) or not points:
+            raise ValueError("MSM: as many scalars as points, at least one")
+        xs, ys, inf = native._points_to_arrays(points, self.ec.d)
+        table = self.table_from_limbs(xs, ys, inf.astype(bool),
+                                      resolve_device(device))
+        nbytes = (self.scalar_bits + 63) // 64 * 8
+        return table, self.limb_rows(scalars, nbytes)
+
+    def msm(self, points, scalars, device=None):
+        """Host points and int scalars -> host point: the table and the
+        window sums on `device` (None: the card), the C++ schedule (the
+        reference's host convenience, pcd_tpu/ops/msm_stream.py:561-567)."""
+        return self.msm_limbs(*self.operands(points, scalars, device))
+
 
 @lru_cache(maxsize=None)
 def stream_ctx(curve, scalar_bits: int, c: int = 12,

@@ -15,11 +15,15 @@ the C++ schedule (ops/msm_stream.py):
   host  the histogram is fetched (the one device-to-host sync of a
         schedule) and `_pick_shapes` takes the active windows, one shared
         round count T and maxrun from it, as the reference does;
-  card  P2's placement over the active windows only, torch ops: the
-        C++ and numpy schedules' placement law (each bucket ceil(count/T)
-        lanes, its k-th point on lane start + k % lanes, round k // lanes)
-        computed arithmetically from the sorted ranks, into the (perm,
-        loads, bidx, runrem) int32 tensors K1 and K4 take.
+  card  P2's placement over the active windows only (csrc/sched_place.cu,
+        two launches): the C++ and numpy schedules' placement law (each
+        bucket ceil(count/T) lanes, its k-th point on lane start +
+        k % lanes, round k // lanes) computed from the sorted ranks.
+        p2_buckets scans each window's buckets and gives each lane its
+        bucket, load, run remainder, round-0 rank and stride; p2_place
+        writes every round's signed row.  Together they give the (perm,
+        loads, bidx, runrem) int32 tensors K1 and K4 take; `place_plain`
+        keeps the torch-ops law as their yardstick.
 
 The reference computes its gather indices inside one fused program and
 gathers table rows in chunks carried by `init`; K1 gathers by perm
@@ -30,13 +34,15 @@ port's tables always flag infinity in-row (ops/ec.py), so there is no
 mask, and a schedule serves any table of the same length.
 
 On the CPU every step runs its plain torch version (P1: the digits, a
-stable torch.sort and a searchsorted, the reference's three steps); on a
-CUDA device the P1 kernels launch (or raise) and nothing falls back to
-the torch sort or to the host schedule.
+stable torch.sort and a searchsorted, the reference's three steps; P2:
+each kernel's plain version); on a CUDA device the P1 and P2 kernels
+launch (or raise) and nothing falls back to torch ops or to the host
+schedule.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -52,6 +58,10 @@ P1_KERNELS = ("p1_digits", "p1_hist", "p1_scan", "p1_scatter")
 # against the library once (_p1_lib)
 P1_TILE = 8192
 P1_WARPS = 8
+# the P2 kernels (csrc/sched_place.cu), each launched once a schedule
+# with an active window
+P2_KERNELS = ("p2_buckets", "p2_place")
+SCHED_KERNELS = P1_KERNELS + P2_KERNELS
 
 
 @lru_cache(maxsize=None)
@@ -188,10 +198,14 @@ class DevSchedMSM:
         return self.scatter(mags, starts, counts), signs, counts
 
     def _launch(self, kernel, entry, *args):
-        """The C entry `entry` of csrc/sched_digits.cu on the current
-        stream; counts the launch of `kernel`, or raises."""
-        rc = getattr(_p1_lib(), entry)(
-            *args, torch.cuda.current_stream().cuda_stream)
+        """The C entry `entry` of csrc/sched_digits.cu (a P1 kernel) or
+        csrc/sched_place.cu (P2) on the current stream; counts the launch
+        of `kernel`, or raises."""
+        from .kernels import lib
+
+        so = _p1_lib() if kernel in P1_KERNELS else lib("sched_place")
+        rc = getattr(so, entry)(*args,
+                                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
         _LAUNCHES[(kernel, self.form)] += 1
@@ -341,12 +355,135 @@ class DevSchedMSM:
 
     # -- P2's placement ------------------------------------------------------
     def place(self, order, signs, counts, act, T):
-        """The placement law over the active windows `act`, on the device
-        of `order`: (perm (nact, T, L) int32, row index with the digit sign
-        in bit 31, 0 past a lane's load; loads (nact, L); bidx (nact, B),
-        each bucket's first lane as a global lane over the nact windows,
-        sentinel nact * L; runrem (nact, L), lanes left in the lane's run,
-        0 on an unused lane)."""
+        """The placement law over the active windows `act` (ascending), on
+        the device of P1's (order, signs, counts): (perm (nact, T, L)
+        int32, row index with the digit sign in bit 31, 0 past a lane's
+        load; loads (nact, L); bidx (nact, B), each bucket's first lane as
+        a global lane over the nact windows, sentinel nact * L; runrem
+        (nact, L), lanes left in the lane's run, 0 on an unused lane).  On
+        a CUDA device the two P2 kernels, on the CPU their plain versions
+        (place_tiles); T at least the fit of every active window."""
+        s = self.sctx
+        nwin = s.nwin
+        if not (order.dtype == torch.int32 and signs.dtype == torch.int8
+                and counts.dtype == torch.int32 and order.dim() == 2
+                and signs.shape == order.shape and order.shape[0] == nwin
+                and tuple(counts.shape) == (nwin, s.B + 2)):
+            raise ValueError("P2: P1's order (nwin, n) int32, signs int8 and "
+                             "counts (nwin, B + 2) int32 expected")
+        if len({order.device, signs.device, counts.device}) != 1 or not all(
+                x.is_contiguous() for x in (order, signs, counts)):
+            raise ValueError("P2: order, signs and counts contiguous, on "
+                             "one device")
+        if not act or list(act) != sorted(set(act)) or act[0] < 0 \
+                or act[-1] >= nwin or T < 1:
+            raise ValueError(f"P2: active windows {act} or T = {T} refused")
+        return self.place_tiles(order, signs, counts, act, T)
+
+    def place_tiles(self, order, signs, counts, act, T):
+        """P2 as its kernels compute it: p2_buckets, then p2_place.  On a
+        CPU tensor each is its plain version, so this is the kernels'
+        emulation."""
+        bidx, loads, runrem, lanes = self.p2_buckets(counts, act, T)
+        return self.p2_place(order, signs, act, T, loads, lanes), loads, \
+            bidx, runrem
+
+    def p2_buckets(self, counts, act, T):
+        """p2_buckets: counts (nwin, B + 2) int32 -> (bidx (nact, B), loads
+        (nact, L), runrem (nact, L), lanes (nact, L, 2)) int32, lanes[i,
+        l] the lane's round-0 sorted rank and its bucket's lane count."""
+        if not self._on_card("p2_buckets", counts):
+            return self.p2_buckets_plain(counts, act, T)
+        s = self.sctx
+        nact, L = len(act), s.L
+        if counts.dtype != torch.int32 or counts.shape != (s.nwin, s.B + 2):
+            raise ValueError("p2_buckets: counts (nwin, B + 2) int32 "
+                             "expected")
+        new = lambda *shape: torch.empty(shape, dtype=torch.int32,
+                                         device=counts.device)
+        bidx, loads, runrem = new(nact, s.B), new(nact, L), new(nact, L)
+        lanes = new(nact, L, 2)
+        self._launch("p2_buckets", "pcd_p2_buckets", counts.data_ptr(),
+                     s.nwin, s.B + 2, _wins(act), nact, s.B, T, L,
+                     bidx.data_ptr(), loads.data_ptr(), runrem.data_ptr(),
+                     lanes.data_ptr())
+        return bidx, loads, runrem, lanes
+
+    def p2_place(self, order, signs, act, T, loads, lanes):
+        """p2_place: P1's order and signs, p2_buckets' loads and lanes ->
+        perm (nact, T, L) int32."""
+        if not self._on_card("p2_place", order):
+            return self.p2_place_plain(order, signs, act, T, loads, lanes)
+        nwin, n = order.shape
+        nact, L = len(act), self.sctx.L
+        if not (order.dtype == torch.int32 and signs.dtype == torch.int8
+                and signs.shape == order.shape and loads.shape == (nact, L)
+                and lanes.shape == (nact, L, 2)
+                and loads.dtype == lanes.dtype == torch.int32
+                and all(x.is_contiguous() and x.device == order.device
+                        for x in (signs, loads, lanes))):
+            raise ValueError("p2_place: P1's order and signs, p2_buckets' "
+                             "loads and lanes expected")
+        perm = torch.empty((nact, T, L), dtype=torch.int32,
+                           device=order.device)
+        self._launch("p2_place", "pcd_p2_place", order.data_ptr(),
+                     signs.data_ptr(), nwin, n, _wins(act), nact, T, L,
+                     loads.data_ptr(), lanes.data_ptr(), perm.data_ptr())
+        return perm
+
+    # the plain versions of p2_buckets and p2_place, on any device: the
+    # kernels' formulas (a lane's bucket the last one starting at or
+    # before it: the binary search of p2_buckets)
+    def p2_buckets_plain(self, counts, act, T):
+        s = self.sctx
+        L, B = s.L, s.B
+        dev = counts.device
+        nact = len(act)
+        aidx = torch.tensor(act, dtype=torch.int64, device=dev)
+        cnt = counts.index_select(0, aidx)[:, :B + 1].to(torch.int64)
+        cnz = cnt[:, 1:]
+        zero = cnt.new_zeros((nact, 1))
+        starts = torch.cat([zero, torch.cumsum((cnz + (T - 1)) // T, 1)], 1)
+        off = cnt[:, :1] + torch.cat([zero, torch.cumsum(cnz, 1)], 1)
+        glob = torch.arange(nact, dtype=torch.int64, device=dev)[:, None] * L
+        bidx = torch.where(cnz > 0, starts[:, :B] + glob, nact * L)
+        lane = torch.arange(L, dtype=torch.int64, device=dev).expand(nact, L)
+        b = torch.searchsorted(starts[:, :B].contiguous(), lane.contiguous(),
+                               right=True) - 1
+        st = starts.gather(1, b)
+        lb = starts.gather(1, b + 1) - st
+        of = off.gather(1, b)
+        cz = off.gather(1, b + 1) - of
+        j = lane - st
+        valid = lane < starts[:, B:]
+        lb1 = torch.where(valid, lb, 1)
+        loads = torch.where(valid, (cz - j + lb1 - 1) // lb1, 0)
+        runrem = torch.where(valid, lb - j, 0)
+        lanes = torch.stack([torch.where(valid, of + j, 0),
+                             torch.where(valid, lb, 0)], -1)
+        return tuple(x.to(torch.int32).contiguous()
+                     for x in (bidx, loads, runrem, lanes))
+
+    def p2_place_plain(self, order, signs, act, T, loads, lanes):
+        L = self.sctx.L
+        dev = order.device
+        nact = len(act)
+        aidx = torch.tensor(act, dtype=torch.int64, device=dev)
+        t = torch.arange(T, dtype=torch.int64, device=dev).view(1, T, 1)
+        live = t < loads.to(torch.int64)[:, None, :]
+        k = (lanes[..., 0].to(torch.int64)[:, None, :]
+             + t * lanes[..., 1].to(torch.int64)[:, None, :])
+        pidx = order.index_select(0, aidx).gather(
+            1, torch.where(live, k, 0).view(nact, T * L)).to(torch.int64)
+        neg = (signs.index_select(0, aidx).gather(1, pidx) != 0).to(
+            torch.int64)
+        perm = torch.where(live.view(nact, T * L), pidx - (neg << 31), 0)
+        return perm.to(torch.int32).view(nact, T, L)
+
+    def place_plain(self, order, signs, counts, act, T):
+        """The placement law as torch ops (what place returns), the
+        yardstick of the P2 kernels in the tests and chip_smoke.py; no path
+        calls it."""
         s = self.sctx
         L, B = s.L, s.B
         dev = order.device
@@ -419,15 +556,12 @@ class DevSchedMSM:
     def msm(self, points, scalars, device=None):
         """Host points and int scalars -> host point, the table and the
         scalars uploaded to `device` (None: the card)."""
-        from .. import native
-        from ..device import resolve_device
+        return self.msm_limbs(*self.sctx.operands(points, scalars, device))
 
-        dev = resolve_device(device)
-        s = self.sctx
-        xs, ys, inf = native._points_to_arrays(points, s.ec.d)
-        table = s.table_from_limbs(xs, ys, inf.astype(bool), dev)
-        nbytes = (s.scalar_bits + 63) // 64 * 8
-        return self.msm_limbs(table, s.limb_rows(scalars, nbytes))
+
+def _wins(act):
+    """The active windows as the P2 entries' int array."""
+    return (ctypes.c_int * len(act))(*act)
 
 
 @lru_cache(maxsize=None)

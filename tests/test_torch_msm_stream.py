@@ -3,9 +3,10 @@ package's StreamMSMCtx (pcd_tpu/ops/msm_stream.py) on the toy cycle, the
 cases of tests/test_msm_stream.py (c = 6, lanes = 128) on the CPU: signed
 digits, the numpy and C++ schedules, infinities, zero scalars, more points
 than lanes, the absorbed carry window, one schedule shared across G1 and G2
-tables, and the per-window sums on one C++ schedule.  Points cross between
-the packages as the C++ tier's u64 limb arrays; results are compared as
-affine points.
+tables, and the per-window sums on one C++ schedule; the host convenience
+`msm` (host points and int scalars in) against the C++ Pippenger.  Points
+cross between the packages as the C++ tier's u64 limb arrays; results are
+compared as affine points.
 """
 
 import numpy as np
@@ -214,3 +215,40 @@ def test_window_sums_match_reference(toy):
         assert _affine(pc.ec.decode_point(ws[w])) == _affine(want), w
     assert _affine(pc.horner_host(ws)) == _affine(_host(pts, scalars,
                                                         ref.g1))
+
+
+@pytest.mark.parametrize("grp", ["g1", "g2"])
+def test_host_msm_entry_matches_cpp(toy, grp):
+    """StreamMSMCtx.msm (host points and int scalars in, the table built
+    on the CPU, the C++ schedule) equals the C++ Pippenger and the device
+    scheduler's DevSchedMSM.msm on the port's own points, with an infinity,
+    a repeated point, zero scalars and r - 1."""
+    from pcd_tpu_torch import native
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+
+    _, port = toy
+    curve, gen = getattr(port, grp), getattr(port, grp + "_gen")
+    r = port.g1.order
+    pts = _points(gen, 45)
+    pts[3] = curve.infinity()
+    pts[9] = pts[2]
+    scalars = _scalars(r, 45, 11)
+    scalars[0], scalars[1], scalars[2] = 0, r - 1, 1
+    pc = StreamMSMCtx(curve, port.Fr.BITS, c=6, lanes=128)
+    got = pc.msm(pts, scalars, device="cpu")
+    assert got == native.msm(pts, scalars)
+    assert got == DevSchedMSM(pc).msm(pts, scalars, device="cpu")
+    assert pc.msm(pts, [0] * 45, device="cpu").is_infinity()
+
+
+def test_host_msm_entry_refuses(toy):
+    """Unequal lengths, no point and a device that is neither the CPU nor
+    a card are refused."""
+    _, port = toy
+    pc = StreamMSMCtx(port.g1, port.Fr.BITS, c=6, lanes=128)
+    pts = _points(port.g1_gen, 3)
+    for args in ((pts, [1, 2]), ([], [])):
+        with pytest.raises(ValueError, match="MSM"):
+            pc.msm(*args, device="cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pc.msm(pts, [1, 2, 3], device="meta")

@@ -16,7 +16,8 @@ lanes:
   - one schedule serves a G1 and a G2 table, and the window sums equal
     pcd_tpu's DevSchedMSM.window_sums as points;
   - a toy Groth16 prove with msm_dispatch.SCHEDULER = "device" writes
-    pcd_tpu's proof bytes, scheduling once for a/b1/b2/l and once for h.
+    pcd_tpu's proof bytes, scheduling once for a/b1/b2/l and once for h
+    (each P1 and P2 kernel's plain version twice).
 """
 
 import numpy as np
@@ -33,7 +34,7 @@ from pcd_tpu.ops.msm_stream_dev import DevSchedMSM as RefDev  # noqa: E402
 from pcd_tpu_torch.curves import models as TM  # noqa: E402
 from pcd_tpu_torch.ops import ec as tec  # noqa: E402
 from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx  # noqa: E402
-from pcd_tpu_torch.ops.msm_stream_dev import P1_KERNELS  # noqa: E402
+from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS  # noqa: E402
 from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM  # noqa: E402
 from pcd_tpu_torch.snark import msm_dispatch  # noqa: E402
 
@@ -283,8 +284,9 @@ def test_window_sums_match_reference(toy):
 
 def test_groth16_prove_device_scheduler(monkeypatch):
     """A toy Groth16 prove with every commitment MSM device-scheduled:
-    pcd_tpu's proof bytes; P1 runs twice (the z vector shared by
-    a/b1/b2/l, then h), K1 and K4 once per MSM."""
+    pcd_tpu's proof bytes; P1 and the P2 placement (place_tiles: each P2
+    kernel's plain version) run twice (the z vector shared by a/b1/b2/l,
+    then h), K1 and K4 once per MSM."""
     from pcd_tpu.snark.groth16.native import Groth16 as RG16
     from pcd_tpu.utils import serialize as RS
     from pcd_tpu.utils.rng import ChaChaRng as RRng
@@ -308,7 +310,7 @@ def test_groth16_prove_device_scheduler(monkeypatch):
     x = tcfg.Fr.from_int(pow(3, 1 << 40, tcfg.Fr.MODULUS))
     assert tg.verify(tvk, [x], proof)
     assert not tg.verify(tvk, [x + tcfg.Fr.from_int(1)], proof)
-    for k in P1_KERNELS:
+    for k in SCHED_KERNELS:
         assert [v for (kk, _), v in plain.items() if kk == k] == [2]
     for k in ("madd_accumulate", "bucket_finish"):
         assert plain[(k, tcfg.g1.name)] == 4         # a, b1, l, h
