@@ -42,8 +42,9 @@ status line:
      replayed through K4 and through finish_steps in turns; then six more
      warm steps, the scheduler (msm_dispatch.SCHEDULER) in three adjacent
      host/device pairs, alternating which runs first, each step with K1
-     and K4 exactly once per commitment MSM (each P1 and P2 kernel twice a
-     prove under "device", never under "host"), the last proof of each
+     and K4 exactly once per commitment MSM (each P1 kernel and the P2
+     kernel twice a prove under "device", never under "host"), the last
+     proof of each
      verified; per scheduler the
      medians and ranges of the step, stream_dispatch, stream_dispatch_h,
      the MSM collect (groth16/msm) and the schedule spans, and the
@@ -95,17 +96,19 @@ status line:
      a 2^18-point MNT4 G1 MSM and a 2^16-point MNT4 G2 MSM, dense and
      low-entropy scalars (digits in two windows only), each equal to the
      C++ Pippenger with K1, K4 and each P1 and P2 kernel launched once,
-     P1 (order, signs, counts) exactly equal to the plain P1 (the digits,
-     a stable torch.sort and a searchsorted), and each P2 kernel exactly
-     equal to its plain version on the same inputs and the placement to
-     place_plain (the torch-ops law); the G1 schedules equal the host
+     P1 (order with each digit's sign in bit 31, signs, counts) exactly
+     equal to the plain P1 (the digits, a stable torch.sort and a
+     searchsorted), and the P2 kernel (p2_place, one launch) exactly
+     equal to its plain version and to place_plain (the torch-ops law)
+     on the same inputs; the G1 schedules equal the host
      placement law (the numpy schedule at the device's T) and the
      low-entropy ones leave the empty windows out; on the dense G1
      scalars each P1 kernel exactly against its plain version on the
      same inputs, with CUDA-event ms, bound and library call, P1's
      CUDA-event ms against its bound and the torch sort and searchsorted,
-     and each P2 kernel's and the placement's against their bound by
-     bytes and the torch-ops placement's; the schedule's CUDA-event ms
+     and the P2 kernel's against its bound by bytes (the bound of the
+     design before, which read the signs, beside it) and the torch-ops
+     placement's; the schedule's CUDA-event ms
      (upload to placement, the histogram fetch included) against the C++
      schedule's wall ms, in turns, and split by events between its
      stages (upload, P1, histogram fetch with _pick_shapes, P2, and what
@@ -135,9 +138,13 @@ status line:
      r - 1, all-0xFF low windows, the integers whose top window wraps onto
      +-T so that the last add doubles or cancels, random ones), exactly
      against its plain version and, as affine points, against the C++
-     fixed-base, with CUDA-event ms, plain ms, ptxas' lines and the
-     bound by the fewest partial products (K3's small-a mixed add, one
-     batched inversion), the kernel's own count beside it;
+     fixed-base, with CUDA-event ms, plain ms, its launch shape (splits a
+     scalar, lanes an add, scalars a tile), registers, stack and ptxas'
+     lines, and the bound by the fewest partial products (K3's small-a
+     mixed add, one batched inversion), the kernel's own count beside it;
+     then K8's CUDA-event ms and bound at each form's KEYGEN_LOG_N
+     scalars, the setups' size (no plain version there: the fb_mul turns
+     hold those points to the host's);
      then msm_dispatch.fb_mul under KEYGEN "host" and "device" in three
      adjacent pairs of turns (2^18 MNT4 G1 scalars, 2^16 of the others),
      the same points from both, the device's wall split into digits,
@@ -237,8 +244,8 @@ REPLACES = {
     ("p1_scatter", 0): "pcd_tpu/ops/msm_stream_dev.py:112",
     # no Pallas site: the placement of DevSchedMSM._p2 (lines 171-196 and
     # 227-229), and its per-round ranks and signed rows (210-216)
-    ("p2_buckets", 0): "pcd_tpu/ops/msm_stream_dev.py:172",
-    ("p2_place", 0): "pcd_tpu/ops/msm_stream_dev.py:210",
+    ("p2_place", 0): "pcd_tpu/ops/msm_stream_dev.py:172, "
+                     "pcd_tpu/ops/msm_stream_dev.py:210",
     # no Pallas site: the device quotient's XLA programs
     ("ntt_pass", 0): "pcd_tpu/ops/fft_tensor.py:74",
     ("spmv_rows", 0): "pcd_tpu/ops/matvec_tensor.py:77",
@@ -257,7 +264,6 @@ SOURCES = {"madd_accumulate": "pcd_tpu_torch/csrc/madd_accumulate.cu",
            "p1_hist": "pcd_tpu_torch/csrc/sched_digits.cu",
            "p1_scan": "pcd_tpu_torch/csrc/sched_digits.cu",
            "p1_scatter": "pcd_tpu_torch/csrc/sched_digits.cu",
-           "p2_buckets": "pcd_tpu_torch/csrc/sched_place.cu",
            "p2_place": "pcd_tpu_torch/csrc/sched_place.cu",
            "ntt_pass": "pcd_tpu_torch/csrc/ntt.cu",
            "spmv_rows": "pcd_tpu_torch/csrc/spmv.cu",
@@ -785,24 +791,40 @@ def fermat_products(d, p):
     return e.bit_length() - 1 + bin(e).count("1") - 1 + {1: 0, 2: 4, 3: 12}[d]
 
 
-def k8_products(ec, p, n, nonzero):
+def k8_products(ec, p, n, nonzero, info):
     """32 x 32-bit partial products of one K8 launch, two ways.  "own":
-    what the kernel issues, a mixed add of 17 Fp^D products (RCB) a
-    nonzero digit and, per scalar, a Fermat inversion, x Z^-1 and y Z^-1,
-    and the 2 D products by 1 out of Montgomery form.  "least": the same
-    function at the fewest products this repo knows for it, the mixed add
-    of K3's group add (group_products) where that is fewer, and
-    the affine conversion as one batched inversion (3 Fp^D products a
-    scalar and one Fermat inversion a launch) before the same x, y
-    products and conversion out of Montgomery form."""
+    what the kernel issues at its launch shape `info` (FixedBaseDevice.
+    kernel_info): K3's group add a nonzero digit (group_products), the
+    splits' S - 1 complete group adds a scalar, a tile's product tree (3
+    Fp^D products a leaf of its power-of-two tree) and one inversion (a
+    binary Euclid: no products but its input's conversion and, at D = 2,
+    3, the norm's 4 or 12 Fp products), then x Z^-1, y Z^-1 and the 2 D
+    products by 1 out of Montgomery form.  "least": the same function at
+    the fewest products this repo knows for it, the mixed add of K3's
+    group add or RCB's, whichever is fewer, and the affine conversion as
+    one batched inversion (3 Fp^D products a scalar and one Fermat
+    inversion a launch) before the same x, y products and conversion out
+    of Montgomery form."""
     d = ec.d
     tail = 2 * PRODUCTS[d] + 2 * d * PRODUCTS[1]
-    own = nonzero * MULS_MADD * PRODUCTS[d] + n * (
-        fermat_products(d, p) * PRODUCTS[1] + tail)
+    ntiles = -(-n // info["tile"])
+    inv = (1 + {1: 0, 2: 4, 3: 12}[d]) * PRODUCTS[1]
+    own = (nonzero * group_products(d, ec.small_a, 5)
+           + n * ((info["splits"] - 1) * group_products(d, ec.small_a, 6)
+                  + tail)
+           + ntiles * (3 * (info["tree"] - 1) * PRODUCTS[d] + inv))
     add = min(MULS_MADD * PRODUCTS[d], group_products(d, ec.small_a, 5))
     least = nonzero * add + n * (3 * PRODUCTS[d] + tail) \
         + fermat_products(d, p) * PRODUCTS[1]
     return {"own": own, "least": least}
+
+
+def k8_work(fb, digits, n, nbytes_out, p):
+    """K8's work on these digits: (nonzero digits, k8_products, bytes
+    moved: the digits, the output and the table once)."""
+    nonzero = int((digits != 0).sum())
+    prods = k8_products(fb.ec, p, n, nonzero, fb.kernel_info(n))
+    return nonzero, prods, digits.numel() + nbytes_out + fb.table_host.nbytes
 
 
 def phase_keygen(results, dev="cuda", phase=11):
@@ -856,15 +878,14 @@ def phase_keygen(results, dev="cuda", phase=11):
                 got[~inf, 1], ys[~inf]) and not got[inf].any()):
             raise AssertionError(f"K8 {form}: != the C++ fixed-base")
         ms = device_ms(lambda: fb.mul_digits(digits), 5, dev)
-        nonzero = int((digits != 0).sum())
-        prods = k8_products(fb.ec, curve.F.prime_subfield().MODULUS, n,
-                            nonzero)
-        nbytes = digits.numel() + out.numel() * 4 + fb.table_host.nbytes
+        p = curve.F.prime_subfield().MODULUS
+        nonzero, prods, nbytes = k8_work(fb, digits, n, out.numel() * 4, p)
         rec = record("fixed_base_mul", form, d, 0, ms, plain_ms, nbytes,
                      2 * prods["least"])
         own_ms = 2 * prods["own"] / INT32_MAD_PER_S * 1e3
         results.append(rec)
         recs[form] = rec
+        info = fb.kernel_info(n)
         say(phase, f"K8 fixed_base_mul {form}: {n} scalars ({fb.nwin} "
                    f"windows, {nonzero} nonzero digits, {int(inf.sum())} "
                    f"identities; 0, 1, r - 1, 0xFF low windows and the top "
@@ -875,8 +896,34 @@ def phase_keygen(results, dev="cuda", phase=11):
                    f"{rec['bound_ms'] / ms:.1%}; partial products: least "
                    f"{prods['least']}, the kernel's own {prods['own']}, "
                    f"which bound at {own_ms:.4f} ms, {own_ms / ms:.1%}), "
-                   f"plain {plain_ms:.0f} ms; table {t_tbl:.2f}s; ptxas: "
-                   + ptxas_lines(log, f"fixed_base_kernelILi{d}E"))
+                   f"plain {plain_ms:.0f} ms; table {t_tbl:.2f}s; shape "
+                   + json.dumps(info) + "; ptxas: "
+                   + ptxas_lines(log, f"fixed_base_kernelILi{d}ELb"
+                                      f"{int(fb.ec.small_a)}E"))
+    # K8 at the setups' size: the fb_mul turns below hold its points
+    for form, cfg, grp in form_cases():
+        curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
+        fb = fixed_base_device(curve, gen, cfg.Fr.BITS)
+        n = 1 << KEYGEN_LOG_N[form]
+        digits = torch.from_numpy(fb.digits_from_ints(
+            [rng.randrange(cfg.Fr.MODULUS) for _ in range(n)])).to(dev)
+        ms = device_ms(lambda: fb.mul_digits(digits), 3, dev)
+        nonzero, prods, nbytes = k8_work(
+            fb, digits, n, n * 2 * fb.ec.d * NLIMB * 4,
+            curve.F.prime_subfield().MODULUS)
+        big = record("fixed_base_mul", form, fb.ec.d, 0, ms, None, nbytes,
+                     2 * prods["least"])
+        own_ms = 2 * prods["own"] / INT32_MAD_PER_S * 1e3
+        say(phase, f"K8 fixed_base_mul {form} at the setups' size, 2^"
+                   f"{KEYGEN_LOG_N[form]} random scalars ({nonzero} nonzero "
+                   f"digits; launch " + json.dumps(
+                       {k: v for k, v in fb.kernel_info(n).items()
+                        if k in ("splits", "tile", "grid")})
+                   + f"): {ms:.4f} ms CUDA events, bound "
+                   f"{big['bound_ms']:.4f} ms ({big['bound_by']}, "
+                   f"{big['bound_ms'] / ms:.1%}; the kernel's own count "
+                   f"{own_ms:.4f} ms, {own_ms / ms:.1%})")
+        del digits
     # fb_mul in turns: KEYGEN's verdict, from the scalars to host points
     default = msm_dispatch.KEYGEN
     shorter, summary = [], {}
@@ -1026,14 +1073,15 @@ def p1_records(dm, W, dev):
     hist = dm.tile_hist(mags)
     hist0 = hist.clone()
     starts, counts = dm.tile_scan(hist)
-    order = dm.scatter(mags, starts, counts)
+    order = dm.scatter(mags, signs, starts, counts)
     pm, ps = dm.digits_plain(W)
     checks = {"p1_digits": (mags.int(), pm), "p1_hist": (
         hist0, dm.hist_plain(mags))}
     ws, wc = dm.scan_plain(hist0)
     checks["p1_scan"] = (torch.cat([starts.view(nwin, -1), counts], 1),
                          torch.cat([ws.view(nwin, -1), wc], 1))
-    checks["p1_scatter"] = (order, dm.scatter_plain(mags, starts, counts))
+    checks["p1_scatter"] = (order, dm.scatter_plain(mags, signs, starts,
+                                                    counts))
     if not torch.equal(signs, ps):
         raise AssertionError("p1_digits: signs != the plain version")
     for k, (a, b) in checks.items():
@@ -1065,10 +1113,10 @@ def p1_records(dm, W, dev):
                     lambda: dm.scan_plain(hist0),
                     lambda: torch.cumsum(hist0, 1, dtype=torch.int32),
                     nwin * nt * K * 8 + nwin * K * 4),
-        "p1_scatter": (lambda: dm.scatter(mags, starts, counts),
-                       lambda: dm.scatter_plain(mags, starts, counts),
+        "p1_scatter": (lambda: dm.scatter(mags, signs, starts, counts),
+                       lambda: dm.scatter_plain(mags, signs, starts, counts),
                        lambda: torch.sort(mags, dim=1, stable=True),
-                       nwin * n * 6 + nwin * nt * K * 4 + nwin * K * 4)}
+                       nwin * n * 7 + nwin * nt * K * 4 + nwin * K * 4)}
     recs = []
     for k, (fn, plain, lib_fn, nbytes) in timing.items():
         ms = device_ms(fn, 10, dev, queued=True)
@@ -1093,66 +1141,49 @@ def p1_records(dm, W, dev):
 
 
 def p2_exact(dm, p1_out, what):
-    """P2 on P1's output: place (the two kernels) against place_plain,
-    and each kernel against its plain version on the same inputs, element
-    for element."""
+    """P2 on P1's output: place (the P2 kernel) against its plain version
+    and against place_plain (the torch-ops law), element for element."""
     import torch
 
-    order, signs, counts = p1_out
+    order, _, counts = p1_out
     act, T, _ = dm._pick_shapes(counts.cpu().numpy())
-    got = dm.place(order, signs, counts, act, T)
-    steps = dm.p2_buckets(counts, act, T)
-    _, loads, _, lanes = steps
-    checks = [("place", got, dm.place_plain(order, signs, counts, act, T)),
-              ("p2_buckets", steps, dm.p2_buckets_plain(counts, act, T)),
-              ("p2_place", (dm.p2_place(order, signs, act, T, loads,
-                                        lanes),),
-               (dm.p2_place_plain(order, signs, act, T, loads, lanes),))]
-    for nm, a, b in checks:
+    got = dm.place(order, counts, act, T)
+    for nm, want in (("p2_place", dm.p2_place_plain(order, counts, act, T)),
+                     ("place_plain", dm.place_plain(order, counts, act, T))):
         if any(x.dtype != y.dtype or not torch.equal(x, y)
-               for x, y in zip(a, b)):
-            raise AssertionError(f"P2 {what}: {nm} != its plain version")
+               for x, y in zip(got, want)):
+            raise AssertionError(f"P2 {what}: p2_place != {nm}")
 
 
 def p2_records(dm, p1_out, act, T, dev):
-    """Each P2 kernel on the dense schedule (p2_exact checked it): CUDA-
-    event ms queued behind a spinning kernel, plain ms (one call), bound
-    by bytes: each input read once and each output written once, of
-    order and signs the entries this schedule places (the lanes' loads);
-    no one PyTorch call computes either, so library_ms is null.  Returns
-    (the records, place's ms queued and as launched, place_plain's (the
-    torch-ops law) as launched: its host work outlasts a queue, P2's
-    bound in ms)."""
-    order, signs, counts = p1_out
+    """The P2 kernel on the dense schedule (p2_exact checked it): CUDA-
+    event ms queued behind a spinning kernel and as launched, plain ms
+    (one call), bound by bytes: each input read once and each output
+    written once, of order the entries this schedule places (the lanes'
+    loads), of counts the active windows' rows; no one PyTorch call
+    computes it, so library_ms is null.  Returns (the record, its ms as
+    launched, place_plain's (the torch-ops law) as launched: its host
+    work outlasts a queue, the bound in ms, and the bound of the design
+    before, which also read each placed entry's sign byte, in ms)."""
+    order, _, counts = p1_out
     s = dm.sctx
     nact, L, B = len(act), s.L, s.B
-    bidx, loads, runrem, lanes = dm.p2_buckets(counts, act, T)
+    _, loads, _, _ = dm.place(order, counts, act, T)
     live = int(loads.sum())                    # placed entries
-    outs = nact * B * 4 + nact * L * 8         # bidx, loads, runrem
-    timing = {
-        "p2_buckets": (lambda: dm.p2_buckets(counts, act, T),
-                       lambda: dm.p2_buckets_plain(counts, act, T),
-                       nact * (B + 1) * 4 + outs + nact * L * 8),
-        "p2_place": (lambda: dm.p2_place(order, signs, act, T, loads, lanes),
-                     lambda: dm.p2_place_plain(order, signs, act, T, loads,
-                                               lanes),
-                     nact * L * 12 + live * 5 + nact * T * L * 4)}
-    recs = []
-    for k, (fn, plain, nbytes) in timing.items():
-        ms = device_ms(fn, 10, dev, queued=True)
-        _, plain_ms = timed_plain(plain, dev)
-        recs.append(record(k, dm.form, 0, 0, ms, plain_ms, nbytes, 0))
+    nbytes = (nact * (B + 1) * 4 + live * 4 + nact * T * L * 4
+              + nact * B * 4 + nact * L * 8)  # perm, bidx, loads, runrem
 
     def place():
-        return dm.place(order, signs, counts, act, T)
+        return dm.place(order, counts, act, T)
 
     def plain():
-        return dm.place_plain(order, signs, counts, act, T)
-    bound = (nact * (B + 1) * 4 + outs + live * 5 + nact * T * L * 4) \
-        / HBM_BYTES_PER_S * 1e3
-    return (recs, (device_ms(place, 10, dev, queued=True),
-                   device_ms(place, 10, dev)), device_ms(plain, 5, dev),
-            bound)
+        return dm.place_plain(order, counts, act, T)
+    ms = device_ms(place, 10, dev, queued=True)
+    _, plain_ms = timed_plain(lambda: dm.p2_place_plain(order, counts, act,
+                                                        T), dev)
+    rec = record("p2_place", dm.form, 0, 0, ms, plain_ms, nbytes, 0)
+    return (rec, device_ms(place, 10, dev), device_ms(plain, 5, dev),
+            rec["bound_ms"], (nbytes + live) / HBM_BYTES_PER_S * 1e3)
 
 
 SCHED_STAGES = ("upload", "p1", "fetch_pick", "p2", "left")
@@ -1186,7 +1217,7 @@ def staged_schedule(dm, limbs, dev):
         raise ValueError("scalar exceeds declared scalar_bits")
     act, T, maxrun = dm._pick_shapes(counts_h)
     marks.append(mark())
-    tensors = dm.place(order, signs, counts, act, T)
+    tensors = dm.place(order, counts, act, T)
     marks.append(mark())
     DevSchedule(act, T, maxrun, W.device, tensors)
     marks.append(mark())
@@ -1291,9 +1322,9 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
         results.extend(recs)
         p1_out = dm.p1(W)
         act, T, _ = dm._pick_shapes(p1_out[2].cpu().numpy())
-        recs2, place_ms, torch_ms, bound2 = p2_records(dm, p1_out, act, T,
-                                                       dev)
-        results.extend(recs2)
+        rec2, launched_ms, torch_ms, bound2, old2 = p2_records(
+            dm, p1_out, act, T, dev)
+        results.append(rec2)
         # the schedule: C++ (host wall) against the device's (CUDA events
         # from the upload to the DevSchedule, histogram fetch included, an
         # event between each two stages), in turns
@@ -1325,17 +1356,15 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
         placed = int(p1_out[2][act, 1:-1].sum())
         say(phase, f"P2[{dm.form}] on the 2^{log} dense schedule "
                    f"({len(act)} windows, T = {T}, {placed} placed "
-                   f"entries): each kernel exact against its plain version; "
-                   f"P2 {place_ms[0]:.4f} ms CUDA events queued "
-                   f"({place_ms[1]:.4f} ms as launched), bound {bound2:.4f} "
-                   f"ms (bytes, {100 * bound2 / place_ms[0]:.1f}% of it), "
-                   f"torch-ops place (place_plain) {torch_ms:.4f} ms as "
-                   f"launched; kernels [ms, bound ms, plain ms]: "
-                   + json.dumps(
-                       {rec["name"]: [round(rec["ms"], 4),
-                                      round(rec["bound_ms"], 4),
-                                      round(rec["plain_ms"], 2)]
-                        for rec in recs2}))
+                   f"entries): p2_place exact against its plain version "
+                   f"and place_plain; {rec2['ms']:.4f} ms CUDA events "
+                   f"queued ({launched_ms:.4f} ms as launched), bound "
+                   f"{bound2:.4f} ms (bytes, "
+                   f"{100 * bound2 / rec2['ms']:.1f}% of it; the design "
+                   f"before read the signs too: {old2:.4f} ms, "
+                   f"{100 * old2 / rec2['ms']:.1f}%), plain "
+                   f"{rec2['plain_ms']:.2f} ms, torch-ops place "
+                   f"(place_plain) {torch_ms:.4f} ms as launched")
         say(phase, f"2^{log} schedule, medians of 3 in turns: device "
                    f"{med['dev']:.3f} ms CUDA events ({med['dev_wall']:.3f} "
                    f"ms wall) vs C++ {med['cpp']:.3f} ms wall; all "

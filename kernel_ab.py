@@ -6,6 +6,7 @@ checkout:
     python3 kernel_ab.py --k4
     python3 kernel_ab.py --quotient --other DIR
     python3 kernel_ab.py --sched --other DIR
+    python3 kernel_ab.py --keygen --other DIR [--sweep]
     python3 kernel_ab.py --trace --other ROOT
     python3 kernel_ab.py --ec --other DIR [--sweep]
 
@@ -56,16 +57,37 @@ kernels' busy time in a torch.profiler trace of six calls, the last
 five calls' worth of kernels recorded (host gaps between launches left
 out).
 
---sched --other DIR: the device scheduler's P1 of this checkout (the
-four kernels of csrc/sched_digits.cu through DevSchedMSM.p1) against
-the one of another copy of pcd_tpu_torch/csrc (DIR, one whose
-sched_digits.cu has the one-launch digits entry pcd_sched_digits, which
-the P1 of that tree follows with a stable torch.sort and a searchsorted
-of the sorted keys) on chip_smoke.py phase 9's 2^18 298-bit scalars at c =
-12, dense and low-entropy.  Both give the same order, signs and counts;
-CUDA events around five calls enqueued behind a spinning kernel (the
-card's time back to back) and around five calls as the host launches
-them, in the order other, this, this, other, three times.
+--sched --other DIR: the device scheduler's P1 + P2 of this checkout
+(csrc/sched_digits.cu's four kernels, p1_scatter storing each digit's
+sign in bit 31 of order, then csrc/sched_place.cu's one launch) against
+another copy of pcd_tpu_torch/csrc (DIR, one whose p1_scatter takes no
+signs and whose P2 is p2_buckets, one block a window, then p2_place,
+which gathers each placed entry's sign: the parent of this design),
+both trees through their raw C entries, on chip_smoke.py phase 9's 2^18
+298-bit scalars at c = 12, dense and low-entropy; then P2 alone, this
+tree's against the other's and against the two-launch variant of
+kernel_ab_p2split.cu (p2_buckets' split kept but spread over several
+blocks a window, on this tree's signed order).  Every result equals
+this tree's (the other's order with bit 31 masked); CUDA events around
+five calls enqueued behind a spinning kernel (the card's time back to
+back) and around five calls as the host launches them, in the order
+other, this[, split], then reversed, three times; medians.
+
+--keygen --other DIR [--sweep]: K8 (fixed_base_mul) of this checkout
+against another copy's csrc/fixed_base.cu (DIR; one whose entry takes
+no SmallA, e.g. the one-thread-a-scalar kernel before this design),
+both built here into build/kernel_ab and called through their raw C
+entries on the four forms' window tables, at 2^14 random scalars and at
+chip_smoke.KEYGEN_LOG_N (the setups' size: 2^18 MNT4 G1, 2^16 the
+others); the outputs equal limb for limb; CUDA events around three
+calls in the order other, this, this, other, three times, and the
+medians, with the pairs in which this tree is faster; ptxas' lines of
+every build.  --sweep: this tree's K8 built again with each launch
+shape of K8_SWEEP (csrc/fixed_base.cuh K8_SHAPE: splits a scalar, lanes
+an add at D = 1, 2, 3, threads a block, minimum blocks; in a header the
+build pre-includes), each timed twice more after the turns.  Each build
+prints its launch at each size (splits, tile, grid) from its own
+pcd_fixed_base_info.
 
 --trace --other ROOT: one warm step of the real mnt4_groth16 chain under
 msm_dispatch.SCHEDULER = "device" inside utils/profiling.device_trace,
@@ -108,6 +130,7 @@ import itertools
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -135,6 +158,17 @@ EC_SWEEP = {
     "minb3": ("2, 1, 0, 128, 3, 2", "1, 128, 3"),
     "minb5": ("2, 1, 0, 128, 5, 2", "1, 128, 5"),
 }
+# --keygen --sweep: this tree's K8 built again with these launch shapes
+# (csrc/fixed_base.cuh K8_SHAPE: the most splits a scalar, lanes an add
+# at D = 1, 2, 3, threads a block, minimum blocks), in a header the build
+# pre-includes
+K8_SWEEP = {
+    "s4": "4, 1, 1, 1, 128, 3",
+    "m2": "2, 1, 1, 1, 128, 2",
+    "t64": "2, 1, 1, 1, 64, 6",
+    "g123": "2, 1, 2, 3, 128, 3",
+}
+P2SPLIT_SRC = os.path.join(HERE, "kernel_ab_p2split.cu")
 # the add chains' group sizes (kernel_ab_chain.cu CHAIN_G)
 CHAIN_GS = (1, 2, 3, 6)
 EC_CHAIN, EC_CHAINS = 32, 264 * 128
@@ -640,69 +674,240 @@ def quotient_ab(libs, summary, out_dir):
         torch.cuda.empty_cache()
 
 
-def sched_ab(other_so, summary):
-    """P1 of this tree against the other's (see the module docstring)."""
+def load_other_sched(p1_so, p2_so):
+    """The other tree's P1 and P2 entries (csrc/sched_digits.cu and
+    csrc/sched_place.cu of DIR) as the parent of the sign-carrying
+    order has them: p1_scatter without the signs, P2 as p2_buckets then
+    p2_place, which gathers the signs."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    p1, p2 = ctypes.CDLL(p1_so), ctypes.CDLL(p2_so)
+    for f, args in ((p1.pcd_p1_digits, [vp, cl, ci, ci, ci, ci, ci, vp, vp,
+                                        vp]),
+                    (p1.pcd_p1_hist, [vp, ci, cl, ci, vp, vp]),
+                    (p1.pcd_p1_scan, [vp, ci, ci, ci, vp, vp]),
+                    (p1.pcd_p1_scatter, [vp, ci, cl, ci, vp, vp, vp, vp]),
+                    (p2.pcd_p2_buckets, [vp, ci, ci, vp, ci, ci, ci, ci, vp,
+                                         vp, vp, vp, vp]),
+                    (p2.pcd_p2_place, [vp, vp, ci, cl, vp, ci, ci, ci, vp,
+                                       vp, vp, vp])):
+        f.restype, f.argtypes = ci, args
+    return p1, p2
+
+
+def sched_ab(other_sos, split_so, summary):
+    """P1 + P2 of this tree against the other's, and P2 alone against the
+    other's and against the two-launch variant (see the module
+    docstring)."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
     from pcd_tpu_torch import native
     from pcd_tpu_torch.curves import models as M
+    from pcd_tpu_torch.ops.kernels import load
     from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
-    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_TILE, DevSchedMSM, _wins
 
+    o1, o2 = load_other_sched(*other_sos)
+    split = load(split_so, "sched_place")
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib = ctypes.CDLL(other_so)
-    lib.pcd_sched_digits.restype = ci
-    lib.pcd_sched_digits.argtypes = [vp, cl, ci, ci, ci, ci, ci, vp, vp, vp]
+    split.pcd_p2_split.restype = ci
+    split.pcd_p2_split.argtypes = [vp, vp, ci, cl, ci, vp, ci, ci, ci, ci,
+                                   vp, vp, vp, vp, vp, vp]
     dev = torch.device("cuda")
     cfg = M.mnt_cycle().main
     s = StreamMSMCtx(cfg.g1, cfg.Fr.BITS)
     dm = DevSchedMSM(s)
-    n = 1 << 18
+    n, nwin, B, L = 1 << 18, s.nwin, s.B, s.L
+    K, nt = B + 2, -(-n // P1_TILE)
     rng = np.random.default_rng(9)
     r = cfg.Fr.MODULUS
     dense = [int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)]
-    qs = torch.arange(s.B + 3, dtype=torch.int32, device=dev).expand(
-        s.nwin, -1).contiguous()
-    summary["p1"] = {}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    new = lambda *shape, dt=torch.int32: torch.empty(  # noqa: E731
+        shape, dtype=dt, device=dev)
+
+    def ok(rc, what):
+        if rc:
+            raise RuntimeError(f"{what}: CUDA error {rc}")
+
+    summary["sched"] = {}
     for kind, sc in (("dense", dense), ("low-entropy", cs.low_entropy(n))):
         W = dm.upload(native.ints_to_limbs(sc), dev)
+        order, signs, counts = dm.p1(W)
+        act, T, _ = dm._pick_shapes(counts.cpu().numpy())
+        nact, wins = len(act), _wins(act)
 
-        def other(W=W):
-            mags = torch.empty((s.nwin, n), dtype=torch.int32, device=dev)
-            signs = torch.empty((s.nwin, n), dtype=torch.int8, device=dev)
-            rc = lib.pcd_sched_digits(
-                W.data_ptr(), n, W.shape[1], s.c, s.base_windows,
-                int(s.carry_win), s.B, mags.data_ptr(), signs.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"sched_digits: CUDA error {rc}")
-            skeys, order = torch.sort(mags, dim=1, stable=True)
-            bounds = torch.searchsorted(skeys, qs)
-            return order, signs, (bounds[:, 1:] - bounds[:, :-1]).to(
-                torch.int32)
+        def other_p1():
+            mags, sg = new(nwin, n, dt=torch.int16), new(nwin, n,
+                                                          dt=torch.int8)
+            ok(o1.pcd_p1_digits(W.data_ptr(), n, W.shape[1], s.c,
+                                s.base_windows, int(s.carry_win), B,
+                                mags.data_ptr(), sg.data_ptr(), stream()),
+               "other p1_digits")
+            hist, cnt = new(nwin, nt, K), new(nwin, K)
+            ok(o1.pcd_p1_hist(mags.data_ptr(), nwin, n, K, hist.data_ptr(),
+                              stream()), "other p1_hist")
+            ok(o1.pcd_p1_scan(hist.data_ptr(), nwin, nt, K, cnt.data_ptr(),
+                              stream()), "other p1_scan")
+            o = new(nwin, n)
+            ok(o1.pcd_p1_scatter(mags.data_ptr(), nwin, n, K,
+                                 hist.data_ptr(), cnt.data_ptr(),
+                                 o.data_ptr(), stream()), "other p1_scatter")
+            return o, sg, cnt
 
-        def this(W=W):
-            return dm.p1(W)
+        def other_p2(o, sg, cnt):
+            bidx, loads, runrem = new(nact, B), new(nact, L), new(nact, L)
+            lanes, perm = new(nact, L, 2), new(nact, T, L)
+            ok(o2.pcd_p2_buckets(cnt.data_ptr(), nwin, K, wins, nact, B, T, L,
+                                 bidx.data_ptr(), loads.data_ptr(),
+                                 runrem.data_ptr(), lanes.data_ptr(),
+                                 stream()), "other p2_buckets")
+            ok(o2.pcd_p2_place(o.data_ptr(), sg.data_ptr(), nwin, n, wins,
+                               nact, T, L, loads.data_ptr(),
+                               lanes.data_ptr(), perm.data_ptr(), stream()),
+               "other p2_place")
+            return perm, loads, bidx, runrem
 
-        for a, b in zip(other(), this()):
-            if not torch.equal(a.to(b.dtype), b):
-                raise AssertionError(f"P1 {kind}: this tree != the other")
+        def split_p2():
+            perm, loads, bidx, runrem = (new(nact, T, L), new(nact, L),
+                                         new(nact, B), new(nact, L))
+            lanes = new(nact, L, 2)
+            ok(split.pcd_p2_split(order.data_ptr(), counts.data_ptr(), nwin,
+                                  n, K, wins, nact, B, T, L, perm.data_ptr(),
+                                  loads.data_ptr(), bidx.data_ptr(),
+                                  runrem.data_ptr(), lanes.data_ptr(),
+                                  stream()), "p2_split")
+            return perm, loads, bidx, runrem
+
+        o_out = other_p1()
+        if not (torch.equal(o_out[0], order & 0x7FFFFFFF)
+                and torch.equal(o_out[1], signs)
+                and torch.equal(o_out[2], counts)):
+            raise AssertionError(f"P1 {kind}: this tree != the other")
+        want = dm.place(order, counts, act, T)
+        for name, got in (("other", other_p2(*o_out)),
+                          ("split", split_p2())):
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"P2 {kind}: {name} != this tree")
+        mags, sg = dm.digits(W)
+        starts, cnt = dm.tile_scan(dm.tile_hist(mags))
+        if not torch.equal(dm.scatter(mags, sg, starts, cnt), order):
+            raise AssertionError(f"p1_scatter {kind}: != P1's order")
+
+        def other_scatter():
+            o = new(nwin, n)
+            ok(o1.pcd_p1_scatter(mags.data_ptr(), nwin, n, K,
+                                 starts.data_ptr(), cnt.data_ptr(),
+                                 o.data_ptr(), stream()), "other p1_scatter")
+            return o
+
+        if not torch.equal(other_scatter(), order & 0x7FFFFFFF):
+            raise AssertionError(f"p1_scatter {kind}: other != this")
+        fns = {"p1_scatter other": other_scatter,
+               "p1_scatter this": lambda: dm.scatter(mags, sg, starts, cnt),
+               "P1+P2 other": lambda: other_p2(*other_p1()),
+               "P1+P2 this": lambda: dm.place(dm.p1(W)[0], counts, act, T),
+               "P2 other": lambda: other_p2(*o_out),
+               "P2 this": lambda: dm.place(order, counts, act, T),
+               "P2 split": split_p2}
         times = {}
-        for name in ("other", "this", "this", "other") * 3:
-            fn = other if name == "other" else this
-            times.setdefault(name, []).append(cs.device_ms(
-                fn, 5, dev, queued=True))
-            times.setdefault(name + " as launched", []).append(ms(fn))
-        res = {k: sum(v) / len(v) for k, v in times.items()}
-        summary["p1"][kind] = {"mean_ms": res, "all_ms": times}
-        print(f"P1 2^18 {kind}, c = 12: other {res['other']:.4f} ms, this "
-              f"{res['this']:.4f} ms (CUDA events, queued behind a spinning"
-              f" kernel; as launched {res['other as launched']:.4f} / "
-              f"{res['this as launched']:.4f} ms; 6 turns each: "
+        for what in ("p1_scatter", "P1+P2", "P2"):
+            names = [f"{what} other", f"{what} this"] + (
+                ["P2 split"] if what == "P2" else [])
+            for name in (names + names[::-1]) * 3:
+                times.setdefault(name, []).append(cs.device_ms(
+                    fns[name], 5, dev, queued=True))
+                times.setdefault(name + " as launched", []).append(
+                    ms(fns[name]))
+        res = {k: statistics.median(v) for k, v in times.items()}
+        summary["sched"][kind] = {"median_ms": res, "all_ms": times,
+                                  "act": len(act), "T": T}
+        print(f"p1_scatter, P1 + P2 and P2, 2^18 {kind}, c = 12, "
+              f"{len(act)} windows, "
+              f"T = {T}; medians (ms, CUDA events queued behind a spinning "
+              f"kernel, then as launched), 6 turns each: " + json.dumps(
+                  {k: round(v, 4) for k, v in res.items()}) + "; all "
               + json.dumps({k: [round(x, 4) for x in v]
-                            for k, v in times.items()}) + ")", flush=True)
+                            for k, v in times.items()}), flush=True)
+
+
+K8_LOG_N = 14
+
+
+def keygen_ab(libs, summary):
+    """K8 of each build in `libs` ({name: library}; "other" through the
+    entry without the SmallA argument) on the four forms at 2^K8_LOG_N and
+    at chip_smoke.KEYGEN_LOG_N random scalars: outputs equal limb for
+    limb, CUDA events in turns (see the module docstring)."""
+    import random
+
+    import torch
+
+    import chip_smoke as cs
+    from pcd_tpu_torch.ops.field import NLIMB
+    from pcd_tpu_torch.ops.fixed_base import fixed_base_device
+
+    dev = torch.device("cuda")
+    rng = random.Random(14)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    summary["keygen"] = {}
+    order = ["other", "this", "this", "other"] * 3
+    order += [n for n in libs if n not in ("other", "this")] * 2
+    for form, cfg, grp in cs.form_cases():
+        curve, gen = getattr(cfg, grp), getattr(cfg, grp + "_gen")
+        fb = fixed_base_device(curve, gen, cfg.Fr.BITS)
+        ec, tbl = fb.ec, fb.table(dev)
+        kc = ec.kconsts.ctypes.data_as(ctypes.c_void_p)
+        ks = ec.ksmall.ctypes.data_as(ctypes.c_void_p)
+        for log_n in (K8_LOG_N, cs.KEYGEN_LOG_N[form]):
+            n = 1 << log_n
+            digits = torch.from_numpy(fb.digits_from_ints(
+                [rng.randrange(cfg.Fr.MODULUS) for _ in range(n)])).to(dev)
+            outs = {name: torch.empty((n, 2, ec.d, NLIMB), dtype=torch.int32,
+                                      device=dev) for name in libs}
+
+            def run(name):
+                args = (ec.d, tbl.data_ptr(), digits.data_ptr(),
+                        outs[name].data_ptr(), n, fb.nwin, kc) + (
+                    () if name == "other" else (ks,)) + (stream(),)
+                rc = libs[name].pcd_fixed_base_mul(*args)
+                if rc:
+                    raise RuntimeError(f"K8 {name} {form}: CUDA error {rc}")
+
+            for name in libs:
+                run(name)
+            torch.cuda.synchronize()
+            for name in libs:
+                if not torch.equal(outs[name], outs["other"]):
+                    raise AssertionError(f"K8 {form} 2^{log_n}: {name} != "
+                                         f"other")
+            times = {}
+            for name in order:
+                times.setdefault(name, []).append(
+                    ms(lambda: run(name), reps=3))
+            pairs = list(zip(times["other"], times["this"]))
+            plans = {}
+            for name, lib in libs.items():
+                if name != "other":
+                    info = (ctypes.c_int * 11)()
+                    lib.pcd_fixed_base_info(ec.d, int(ec.small_a), n, info)
+                    plans[name] = list(info)
+            res = {k: statistics.median(v) for k, v in times.items()}
+            key = f"{form} 2^{log_n}"
+            summary["keygen"][key] = {"median_ms": res, "all_ms": times,
+                                      "info": plans}
+            faster = sum(t < o for o, t in pairs)
+            print(f"K8 {key}: medians " + json.dumps(
+                {k: round(v, 4) for k, v in res.items()})
+                + f"; this faster than other in {faster} of {len(pairs)} "
+                  f"pairs; (group, threads, minb, blocks/SM, regs, local, "
+                  f"smem, tile, splits, tree, grid) " + json.dumps(plans)
+                + "; all " + json.dumps(
+                      {k: [round(x, 4) for x in v]
+                       for k, v in times.items()}), flush=True)
+            del digits, outs
+        torch.cuda.empty_cache()
 
 
 def fetch_waits(trace_path, nbytes):
@@ -838,13 +1043,16 @@ def main(argv):
     sched = "--sched" in argv
     trace = "--trace" in argv
     ec_mode = "--ec" in argv
+    keygen = "--keygen" in argv
     if (other is None and not k4) or (
-            (quotient or sched or trace or ec_mode) and other is None):
+            (quotient or sched or trace or ec_mode or keygen)
+            and other is None):
         print(__doc__, file=sys.stderr)
         return 2
     sweep = ("--sweep" in argv and other is not None and not quotient
-             and not sched and not ec_mode)
+             and not sched and not ec_mode and not keygen)
     ec_sweep = "--sweep" in argv and ec_mode
+    k8_sweep = "--sweep" in argv and keygen
     sys.path.insert(0, HERE)
     import torch
 
@@ -871,7 +1079,7 @@ def main(argv):
         fh.write(PROBE)
     builds = ({"other": (other, []), "this": (CSRC, [])}
               if other and not quotient and not sched and not ec_mode
-              else {})
+              and not keygen else {})
     if sweep:
         for name, defs in SWEEP.items():
             builds["this_" + name] = (CSRC, defs)
@@ -894,9 +1102,29 @@ def main(argv):
             so = os.path.join(out_dir, f"{name}.so")
             procs[name] = (nvcc([*NVCC_FLAGS, *defs, "-o", so, src]), so)
     if sched:
-        so = os.path.join(out_dir, "sched_other.so")
-        procs["sched_other"] = (nvcc([*NVCC_FLAGS, "-o", so, os.path.join(
-            other, "sched_digits.cu")]), so)
+        for name, src in (("sched_other", os.path.join(other,
+                                                        "sched_digits.cu")),
+                          ("place_other", os.path.join(other,
+                                                        "sched_place.cu"))):
+            so = os.path.join(out_dir, f"{name}.so")
+            procs[name] = (nvcc([*NVCC_FLAGS, "-o", so, src]), so)
+        so = os.path.join(out_dir, "p2split.so")
+        procs["p2split"] = (nvcc([*NVCC_FLAGS, "-I", CSRC, "-o", so,
+                                  P2SPLIT_SRC]), so)
+    k8_builds = {}
+    if keygen:
+        k8_builds = {"other": (other, []), "this": (CSRC, [])}
+        if k8_sweep:
+            for name, shape in K8_SWEEP.items():
+                hdr = os.path.join(out_dir, f"k8shape_{name}.h")
+                with open(hdr, "w") as fh:
+                    fh.write(f"#define K8_SHAPE {shape}\n")
+                k8_builds["this_" + name] = (CSRC, ["-include", hdr])
+        for name, (src, defs) in k8_builds.items():
+            so = os.path.join(out_dir, f"fixed_base_{name}.so")
+            procs[f"k8_{name}"] = (nvcc([*NVCC_FLAGS, *defs, "-o", so,
+                                         os.path.join(src, "fixed_base.cu")]),
+                                   so)
     ec_builds = {}
     if ec_mode:
         ec_builds = {"other": (other, []), "this": (CSRC, [])}
@@ -963,16 +1191,45 @@ def main(argv):
             "fp_vec")
         quotient_ab(libs, summary, out_dir)
     if sched:
-        for name, log in (("sched_other", logs["sched_other"]), (
-                "sched_digits", kernels.BUILD_INFO.get("sched_digits", {})
-                .get("ptxas", ""))):
+        for name, log in (
+                ("sched_other", logs["sched_other"]),
+                ("place_other", logs["place_other"]),
+                ("p2split", logs["p2split"]),
+                ("sched_digits", kernels.BUILD_INFO.get("sched_digits", {})
+                 .get("ptxas", "")),
+                ("sched_place", kernels.BUILD_INFO.get("sched_place", {})
+                 .get("ptxas", ""))):
             regs = [ln.strip() for ln in log.splitlines()
                     if "Compiling" in ln or "registers" in ln
                     or "spill" in ln]
             summary["ptxas"][name] = regs
             for ln in regs:
                 print(f"ptxas {name}: {ln}")
-        sched_ab(procs["sched_other"][1], summary)
+        sched_ab((procs["sched_other"][1], procs["place_other"][1]),
+                 procs["p2split"][1], summary)
+    if keygen:
+        from pcd_tpu_torch.ops.kernels import load
+
+        k8_libs = {}
+        for name in k8_builds:
+            regs = [ln.strip() for ln in logs[f"k8_{name}"].splitlines()
+                    if "Compiling" in ln or "registers" in ln
+                    or "spill" in ln]
+            summary["ptxas"][f"k8_{name}"] = regs
+            for ln in regs:
+                print(f"ptxas k8_{name}: {ln}")
+            path = procs[f"k8_{name}"][1]
+            if name == "other":
+                lib = ctypes.CDLL(path)
+                lib.pcd_fixed_base_mul.restype = ctypes.c_int
+                lib.pcd_fixed_base_mul.argtypes = [
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p]
+                k8_libs[name] = lib
+            else:
+                k8_libs[name] = load(path, "fixed_base")
+        keygen_ab(k8_libs, summary)
     if k4:
         regs = [ln.strip() for ln in logs["runsum"].splitlines()
                 if "Compiling" in ln or "registers" in ln or "spill" in ln]
@@ -1009,7 +1266,7 @@ def main(argv):
                                      f"other tree's")
         ec_ab(libs, {"other"}, {g: procs[f"chain_g{g}"][1] for g in CHAIN_GS},
               summary)
-    if not other or quotient or sched or ec_mode:
+    if not other or quotient or sched or ec_mode or keygen:
         print(json.dumps(summary))
         return 0
     for tree in ("other", "this"):

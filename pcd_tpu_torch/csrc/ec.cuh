@@ -154,14 +154,14 @@ PCD_FN void rcb_madd(Pt<D>& R, const Pt<D>& P,
 }
 
 // dst (2, D, NL) = the affine canonical coordinates of P (x = X / Z, y = Y
-// / Z, out of Montgomery form by a product with the integer 1), and for
-// the identity (Z = 0) zeros with the infinity flag, bit 31 of x's top
-// limb (K8's output; its plain version FixedBaseDevice.mul_digits_plain).
+// / Z, out of Montgomery form by a product with the integer 1) given zi =
+// Z^-1, and for the identity (Z = 0) zeros with the infinity flag, bit 31
+// of x's top limb (K8's output; its plain version
+// FixedBaseDevice.mul_digits_plain).
 template <int D>
-PCD_FN void pt_store_affine(uint32_t* dst, const Pt<D>& P,
-                            const FieldConsts& k) {
-  Fe<D> zi, x, y;
-  fe_inv<D>(zi, P.Z, k);
+PCD_FN void pt_store_affine_zi(uint32_t* dst, const Pt<D>& P,
+                               const Fe<D>& zi, const FieldConsts& k) {
+  Fe<D> x, y;
   fe_mul(x, P.X, zi, k);
   fe_mul(y, P.Y, zi, k);
   const uint32_t one[NL] = {1, 0, 0, 0, 0, 0, 0, 0, 0, 0};
@@ -183,33 +183,11 @@ PCD_FN void pt_store_affine(uint32_t* dst, const Pt<D>& P,
   if (!zor) dst[NL - 1] |= 0x80000000u;
 }
 
-// [s] G of one scalar by windows of 8 bits (K8, csrc/fixed_base.cu):
-// from the identity, for each window w whose digit d = dg[w * stride] is
-// not 0, a complete mixed add of the table row tbl[w][d] = d 2^(8w) G
-// ((nwin, 256, 2, D, NL) affine Montgomery rows), then the affine
-// canonical store.  rcb_madd is complete for acc = identity and acc =
-// +-tbl[w][d], which the top window's wrap modulo the group order allows.
+// the same with Z's own inversion (fe_inv; 0 for the identity)
 template <int D>
-PCD_FN void fb_point(uint32_t* dst, const uint32_t* tbl, const uint8_t* dg,
-                     long stride, int nwin, const FieldConsts& k) {
-  constexpr int RW = 2 * D * NL;
-  Pt<D> acc;
-  pt_identity<D>(acc, k);
-  for (int w = 0; w < nwin; ++w) {
-    const uint32_t d = dg[(long)w * stride];
-    if (d == 0) continue;
-    const uint32_t* row = tbl + ((long)w * 256 + d) * RW;
-    Fe<D> x, y;
-#pragma unroll
-    for (int c = 0; c < D; ++c)
-#pragma unroll
-      for (int l = 0; l < NL; ++l) {
-        x.c[c][l] = row[c * NL + l];
-        y.c[c][l] = row[(D + c) * NL + l];
-      }
-    Pt<D> t;
-    rcb_madd<D>(t, acc, x, y, k);
-    acc = t;
-  }
-  pt_store_affine<D>(dst, acc, k);
+PCD_FN void pt_store_affine(uint32_t* dst, const Pt<D>& P,
+                            const FieldConsts& k) {
+  Fe<D> zi;
+  fe_inv<D>(zi, P.Z, k);
+  pt_store_affine_zi<D>(dst, P, zi, k);
 }

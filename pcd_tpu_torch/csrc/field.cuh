@@ -239,33 +239,91 @@ PCD_FN void fe_load_const(Fe<D>& r, const uint32_t src[3][NL]) {
     for (int l = 0; l < NL; ++l) r.c[i][l] = src[i][l];
 }
 
-// Inversion (K8's affine conversion).  Fermat: a^(p-2) by square and
-// multiply from the exponent's top bit, every thread on the same bits (no
-// divergence); a = 0 gives 0.  The exponent p - 2 comes from k.p, so one
-// body serves every field.  r must not alias a.
+// Inversion (K8's affine conversion, one a tile of scalars on one
+// thread, so its latency and not its work counts): a binary extended
+// Euclid (Hankerson-Menezes-Vanstone, alg. 2.22) on the canonical value c
+// = a / R, with x1 starting at R mod p, so that it ends at R / c, the
+// Montgomery form of a^-1: while u, v != 1, halve u (x1 by 2 mod p) while
+// even, likewise v and x2, then subtract the smaller of u, v (and its x)
+// from the larger.  Each step is a few shifts and carry chains of NL
+// words, about 900 steps for a 298-bit p where Fermat's a^(p-2) is 450
+// Montgomery products.  a = 0 gives 0.  r must not alias a.
+PCD_FN void fp_halve(uint32_t x[NL], const uint32_t p[NL]) {
+  const uint32_t m = 0u - (x[0] & 1u);   // odd: x + p, which is even
+  uint32_t s[NL];
+  s[0] = add_cc(x[0], p[0] & m);
+#pragma unroll
+  for (int i = 1; i < NL; ++i) s[i] = addc_cc(x[i], p[i] & m);
+#pragma unroll
+  for (int i = 0; i < NL - 1; ++i) x[i] = (s[i] >> 1) | (s[i + 1] << 31);
+  x[NL - 1] = s[NL - 1] >> 1;            // x + p < 2^301: no carry out
+}
+
+PCD_FN bool fp_is_one(const uint32_t a[NL]) {
+  uint32_t o = a[0] ^ 1u;
+#pragma unroll
+  for (int i = 1; i < NL; ++i) o |= a[i];
+  return o == 0;
+}
+
 PCD_FN void fp_inv(uint32_t r[NL], const uint32_t a[NL],
                    const FieldConsts& k) {
-  uint32_t e[NL];
-  e[0] = sub_cc(k.p[0], 2u);
+  const uint32_t one[NL] = {1, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  uint32_t u[NL], v[NL], x1[NL], x2[NL], t[NL];
+  fp_mul(u, a, one, k);                  // c = a / R
+  uint32_t nz = 0;
 #pragma unroll
-  for (int i = 1; i < NL; ++i) e[i] = subc_cc(k.p[i], 0u);
-  int top = 32 * NL - 1;
-  while (!((e[top >> 5] >> (top & 31)) & 1u)) --top;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) r[l] = a[l];
-  for (int i = top - 1; i >= 0; --i) {
-    fp_mul(r, r, r, k);
-    if ((e[i >> 5] >> (i & 31)) & 1u) fp_mul(r, r, a, k);
+  for (int i = 0; i < NL; ++i) {
+    nz |= u[i];
+    v[i] = k.p[i];
+    x1[i] = k.one[i];
+    x2[i] = 0;
   }
+  if (!nz) {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) r[i] = 0;
+    return;
+  }
+  while (!fp_is_one(u) && !fp_is_one(v)) {
+    while (!(u[0] & 1u)) {
+#pragma unroll
+      for (int i = 0; i < NL - 1; ++i) u[i] = (u[i] >> 1) | (u[i + 1] << 31);
+      u[NL - 1] >>= 1;
+      fp_halve(x1, k.p);
+    }
+    while (!(v[0] & 1u)) {
+#pragma unroll
+      for (int i = 0; i < NL - 1; ++i) v[i] = (v[i] >> 1) | (v[i + 1] << 31);
+      v[NL - 1] >>= 1;
+      fp_halve(x2, k.p);
+    }
+    t[0] = sub_cc(u[0], v[0]);
+#pragma unroll
+    for (int i = 1; i < NL; ++i) t[i] = subc_cc(u[i], v[i]);
+    if (!subc(0, 0)) {                   // u >= v
+#pragma unroll
+      for (int i = 0; i < NL; ++i) u[i] = t[i];
+      fp_sub(x1, x1, x2, k.p);
+    } else {
+      v[0] = sub_cc(v[0], u[0]);
+#pragma unroll
+      for (int i = 1; i < NL; ++i) v[i] = subc_cc(v[i], u[i]);
+      fp_sub(x2, x2, x1, k.p);
+    }
+  }
+  const bool first = fp_is_one(u);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r[i] = first ? x1[i] : x2[i];
 }
 
 // Fp^D inverse through the norm to Fp: at D = 2 a^-1 = conj(a) / N(a),
 // N(a) = a0^2 - nr a1^2; at D = 3 the adjugate (A, B, C) = a^s a^(s^2) (s
 // the Frobenius) with A = a0^2 - nr a1 a2, B = nr a2^2 - a0 a1, C = a1^2 -
 // a0 a2, and N(a) = a0 A + nr (a2 B + a1 C), one fp_mul_sum as ext_mul
-// sums a component (the nr a_i scaled, not reduced).  One Fermat
-// inversion in Fp either way.  The plain version is FieldCtx.inv_plain
-// (ops/field.py).  r must not alias a.
+// sums a component (the nr a_i scaled, not reduced).  One inversion
+// in Fp (fp_inv) either way.  The plain version is FieldCtx.inv_plain
+// (ops/field.py), which inverts by Fermat: the inverse is unique, so the
+// two agree limb for limb.  r must not alias a.
 template <int D>
 PCD_FN void fe_inv(Fe<D>& r, const Fe<D>& a, const FieldConsts& k) {
   if constexpr (D == 1) {

@@ -37,7 +37,10 @@
 //               grows with the distinct keys of a warp, and dense digits
 //               are nearly all distinct) and stages the scalar's index at
 //               its local place; the tile then goes out in local order, so
-//               each bin's keys are written to consecutive slots.
+//               each bin's keys are written to consecutive slots.  The
+//               digit's sign rides in bit 15 of the staged key (keys are
+//               below 2^14), loaded beside the magnitude, and goes out in
+//               bit 31 of the index: the perm entry P2 stores as it is.
 //
 // Stable and deterministic: a key's slot is its bin's start + the keys of
 // its bin in earlier tiles, earlier warps of its tile, earlier rounds of
@@ -45,6 +48,8 @@
 //
 // Bound: bytes.  4 * nwords read and (4 + 1) * nwin written (order, signs)
 // per scalar, plus the counts, against a few integer operations per key.
+// (The signs are written by p1_digits and read back by p1_scatter, the
+// design's own traffic, so that P2 reads none.)
 // The u16 magnitudes and the tile histograms are the design's own traffic.
 #include <cstdint>
 
@@ -59,6 +64,7 @@ constexpr int P1_SCAN_RUN = 16;          // tiles a p1_scan thread loads at once
 constexpr int P1_MAX_NWORDS = 32;
 constexpr uint32_t P1_NO_KEY = 0xFFFFu;  // past the end: above every bin
 constexpr int P1_KEY_BITS = 14;          // K <= 8,194: every key below 2^14
+constexpr uint32_t P1_SIGN = 0x8000u;    // a staged key's sign bit
 
 // The lanes whose key equals this lane's, by one ballot per key bit; the
 // ballots are independent of each other, so unrolled they issue back to
@@ -180,7 +186,8 @@ __device__ __forceinline__ long long block_exclusive(long long v,
 }
 
 __global__ void __launch_bounds__(P1_THREADS)
-p1_scatter_kernel(const uint16_t* __restrict__ mags, long n, int K,
+p1_scatter_kernel(const uint16_t* __restrict__ mags,
+                  const int8_t* __restrict__ signs, long n, int K,
                   const int32_t* __restrict__ starts,
                   const int32_t* __restrict__ counts,
                   int32_t* __restrict__ order) {
@@ -196,7 +203,28 @@ p1_scatter_kernel(const uint16_t* __restrict__ mags, long n, int K,
   const long t0 = (long)t * P1_TILE;
   const int cnt = (int)min((long)P1_TILE, n - t0);
   const uint16_t* row = mags + (long)w * n + t0;
-  for (int i = threadIdx.x; i < cnt; i += P1_THREADS) keys[i] = row[i];
+  const int8_t* srow = signs + (long)w * n + t0;
+  // stage the keys with their signs, four a thread where both rows are
+  // aligned for it (8-byte magnitudes, 4-byte signs), the rest one a
+  // thread
+  int head = 0;
+  if (!((uintptr_t)row & 7) && !((uintptr_t)srow & 3)) {
+    head = cnt & ~3;
+    const uint2* r4 = reinterpret_cast<const uint2*>(row);
+    const uint32_t* s4 = reinterpret_cast<const uint32_t*>(srow);
+    uint2* k4 = reinterpret_cast<uint2*>(keys);
+    for (int q = threadIdx.x; q < head / 4; q += P1_THREADS) {
+      const uint2 m = r4[q];
+      const uint32_t sg = s4[q];
+      const uint32_t b0 = (sg & 0xFFu) ? P1_SIGN : 0u;
+      const uint32_t b1 = (sg & 0xFF00u) ? P1_SIGN << 16 : 0u;
+      const uint32_t b2 = (sg & 0xFF0000u) ? P1_SIGN : 0u;
+      const uint32_t b3 = (sg & 0xFF000000u) ? P1_SIGN << 16 : 0u;
+      k4[q] = make_uint2(m.x | b0 | b1, m.y | b2 | b3);
+    }
+  }
+  for (int i = head + threadIdx.x; i < cnt; i += P1_THREADS)
+    keys[i] = row[i] | (srow[i] ? P1_SIGN : 0u);
   uint4* slot16 = reinterpret_cast<uint4*>(slot);
   for (int b = threadIdx.x; b < P1_WARPS * K4 / 8; b += P1_THREADS)
     slot16[b] = make_uint4(0, 0, 0, 0);
@@ -212,7 +240,7 @@ p1_scatter_kernel(const uint16_t* __restrict__ mags, long n, int K,
   for (int at = lo; at < hi; at += 32) {                       // warp-uniform
     const int j = at + lane;
     const bool ok = j < hi;
-    const uint32_t key = ok ? keys[j] : none;
+    const uint32_t key = ok ? keys[j] & ~P1_SIGN : none;
     const uint32_t k0 = __shfl_sync(0xFFFFFFFFu, key, 0);
     const unsigned same = __ballot_sync(0xFFFFFFFFu, key == k0);
     if (ok && (key != k0 || lane == __ffs(same) - 1)) {
@@ -252,7 +280,7 @@ p1_scatter_kernel(const uint16_t* __restrict__ mags, long n, int K,
   for (int at = lo; at < hi; at += 32) {
     const int j = at + lane;
     const bool ok = j < hi;
-    const uint32_t key = ok ? keys[j] : none;
+    const uint32_t key = ok ? keys[j] & ~P1_SIGN : none;
     const unsigned peers = peers_of(key);
     unsigned place = 0;
     if (ok) {
@@ -264,12 +292,15 @@ p1_scatter_kernel(const uint16_t* __restrict__ mags, long n, int K,
     __syncwarp();
   }
   __syncthreads();
-  // the tile in local order: a bin's keys go to consecutive slots
+  // the tile in local order: a bin's keys go to consecutive slots, each
+  // index with its sign in bit 31
   int32_t* out = order + (long)w * n;
 #pragma unroll 4
   for (int p = threadIdx.x; p < cnt; p += P1_THREADS) {
     const int j = stage[p];
-    out[p + delta[keys[j]]] = (int32_t)(t0 + j);
+    const uint32_t key = keys[j];
+    out[p + delta[key & ~P1_SIGN]] =
+        (int32_t)((uint32_t)(t0 + j) | (key & P1_SIGN) << 16);
   }
 }
 
@@ -336,12 +367,14 @@ extern "C" int pcd_p1_scan(void* hist, int nwin, int ntiles, int K,
   return (int)cudaGetLastError();
 }
 
-// mags (nwin, n) u16, starts (nwin, ceil(n / P1_TILE), K) i32 and counts
-// (nwin, K) i32 (p1_scan's) -> order (nwin, n) i32, each window's scalar
-// indices stably sorted by magnitude.
-extern "C" int pcd_p1_scatter(const void* mags, int nwin, long n, int K,
-                              const void* starts, const void* counts,
-                              void* order, void* stream) {
+// mags (nwin, n) u16 and signs (nwin, n) i8 (p1_digits'), starts (nwin,
+// ceil(n / P1_TILE), K) i32 and counts (nwin, K) i32 (p1_scan's) -> order
+// (nwin, n) i32, each window's scalar indices stably sorted by magnitude,
+// the digit's sign in bit 31.
+extern "C" int pcd_p1_scatter(const void* mags, const void* signs, int nwin,
+                              long n, int K, const void* starts,
+                              const void* counts, void* order,
+                              void* stream) {
   if (n <= 0 || nwin <= 0 || bad_bins(K)) return (int)cudaErrorInvalidValue;
   const size_t K4 = (size_t)(K + 3) & ~(size_t)3;
   const size_t smem = K4 * 4 + (size_t)P1_TILE * 4 + P1_WARPS * K4 * 2;
@@ -349,8 +382,8 @@ extern "C" int pcd_p1_scatter(const void* mags, int nwin, long n, int K,
   if (rc) return rc;
   const dim3 grid(tiles(n), (unsigned)nwin);
   p1_scatter_kernel<<<grid, P1_THREADS, smem, as_stream(stream)>>>(
-      static_cast<const uint16_t*>(mags), n, K,
-      static_cast<const int32_t*>(starts),
+      static_cast<const uint16_t*>(mags), static_cast<const int8_t*>(signs),
+      n, K, static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(counts), static_cast<int32_t*>(order));
   return (int)cudaGetLastError();
 }

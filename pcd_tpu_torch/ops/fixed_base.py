@@ -11,11 +11,16 @@ held on the device as affine Montgomery rows in the port's table layout
 (ECCtx.table_from_u64), row 0 of each window flagged as the identity.
 The digits are the scalars' bytes (reference fixed_base.py:46-60).
 
-K8 `fixed_base_mul` (csrc/fixed_base.cu) takes one scalar a thread: from
-the identity one complete mixed add of T[w][d] for each nonzero digit,
-then one inversion to affine canonical limbs, the identity flagged; its
-plain version, `mul_digits_plain`, runs the same windows on ECCtx's plain
-RCB mixed add and FieldCtx.inv_plain.  A CPU tensor takes the plain
+K8 `fixed_base_mul` (csrc/fixed_base.cu, its body csrc/fixed_base.cuh)
+takes a tile of scalars a block, each scalar's windows split over a few
+groups (as many as leave the tiles one wave of resident blocks, at most
+K8_SHAPE's): from the identity one complete mixed add of T[w][d] for
+each nonzero digit (K3's small-a group add), the splits joined by
+complete adds, then one inversion for the tile (Montgomery's trick) to
+affine canonical limbs, the identity flagged.  Its plain version,
+`mul_digits_plain`, runs the same windows on ECCtx's plain RCB mixed add
+and FieldCtx.inv_plain; canonical affine limbs are unique, so the two
+agree limb for limb.  A CPU tensor takes the plain
 version, a CUDA tensor the kernel; there is no fallback.  The wrapper
 counts its launches with the other kernels' (ops/ec.py launch_counts).
 The cache is keyed by the curve's name and the base's coordinates, not
@@ -97,12 +102,28 @@ class FixedBaseDevice:
         rc = lib("fixed_base").pcd_fixed_base_mul(
             self.ec.d, tbl.data_ptr(), digits.data_ptr(), out.data_ptr(), n,
             nwin, self.ec.kconsts.ctypes.data_as(ctypes.c_void_p),
+            self.ec.ksmall.ctypes.data_as(ctypes.c_void_p),
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"fixed_base_mul launch failed: CUDA error "
                                f"{rc}")
         _LAUNCHES[key] += 1
         return out
+
+    def kernel_info(self, n: int) -> dict:
+        """K8's launch shape and resources in this form's instantiation,
+        and its launch for n scalars (scalars a tile, splits a scalar,
+        tree leaves, grid), from the built library (pcd_fixed_base_info)."""
+        from .kernels import lib
+
+        out = (ctypes.c_int * 11)()
+        rc = lib("fixed_base").pcd_fixed_base_info(
+            self.ec.d, int(self.ec.small_a), n, out)
+        if rc != 0:
+            raise RuntimeError(f"fixed_base info: CUDA error {rc}")
+        return dict(zip(("group", "threads", "min_blocks", "blocks_per_sm",
+                         "registers", "local_bytes", "smem_bytes", "tile",
+                         "splits", "tree", "grid"), list(out)))
 
     def mul_digits_plain(self, digits: torch.Tensor) -> torch.Tensor:
         """Plain version of K8: the same windows in torch ops, ECCtx's

@@ -23,7 +23,8 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh", "ec_group.cuh", "rows.cuh")
+HEADERS = ("ptx.cuh", "field.cuh", "ec.cuh", "ec_group.cuh", "rows.cuh",
+           "fixed_base.cuh")
 SOURCES = {"madd_accumulate": "madd_accumulate.cu",
            "complete_add": "complete_add.cu",
            "madd": "madd.cu",
@@ -137,14 +138,11 @@ ENTRIES = {
                      ("pcd_p1_hist", _ci, [_vp, _ci, _cl, _ci, _vp, _vp]),
                      ("pcd_p1_scan", _ci, [_vp, _ci, _ci, _ci, _vp, _vp]),
                      ("pcd_p1_scatter", _ci,
-                      [_vp, _ci, _cl, _ci, _vp, _vp, _vp, _vp]),
+                      [_vp, _vp, _ci, _cl, _ci, _vp, _vp, _vp, _vp]),
                      ("pcd_p1_tile", _ci, []), ("pcd_p1_warps", _ci, [])],
-    "sched_place": [("pcd_p2_buckets", _ci,
-                     [_vp, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
-                      _vp, _vp]),
-                    ("pcd_p2_place", _ci,
-                     [_vp, _vp, _ci, _cl, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
-                      _vp])],
+    "sched_place": [("pcd_p2_place", _ci,
+                     [_vp, _vp, _ci, _cl, _ci, _vp, _ci, _ci, _ci, _ci, _vp,
+                      _vp, _vp, _vp, _vp])],
     "ntt": [("pcd_ntt_pass", _ci,
              [_vp, _vp, _vp, _vp, _cl, _ci, _vp, _vp, _vp, _ci, _vp, _cl,
               _ci, _vp, _cl])],
@@ -153,7 +151,8 @@ ENTRIES = {
     "fp_vec": [("pcd_fp_vec", _ci, [_ci, _cl, _cl, _cl, _vp, _vp, _vp, _vp,
                                     _vp, _vp, _vp, _vp, _vp])],
     "fixed_base": [("pcd_fixed_base_mul", _ci,
-                    [_ci, _vp, _vp, _vp, _cl, _ci, _vp, _vp])],
+                    [_ci, _vp, _vp, _vp, _cl, _ci, _vp, _vp, _vp]),
+                   ("pcd_fixed_base_info", _ci, [_ci, _ci, _cl, _vp])],
 }
 
 

@@ -11,19 +11,20 @@ the C++ schedule (ops/msm_stream.py):
         bin (a top-window digit above B), and each tile's offset in each
         bin; p1_scatter writes each window's scalar indices stably sorted
         by digit magnitude (a counting sort: the magnitudes are 12-bit
-        keys at c = 12);
+        keys at c = 12), each with its digit's sign in bit 31;
   host  the histogram is fetched (the one device-to-host sync of a
         schedule) and `_pick_shapes` takes the active windows, one shared
         round count T and maxrun from it, as the reference does;
   card  P2's placement over the active windows only (csrc/sched_place.cu,
-        two launches): the C++ and numpy schedules' placement law (each
-        bucket ceil(count/T) lanes, its k-th point on lane start +
-        k % lanes, round k // lanes) computed from the sorted ranks.
-        p2_buckets scans each window's buckets and gives each lane its
-        bucket, load, run remainder, round-0 rank and stride; p2_place
-        writes every round's signed row.  Together they give the (perm,
-        loads, bidx, runrem) int32 tensors K1 and K4 take; `place_plain`
-        keeps the torch-ops law as their yardstick.
+        one launch, p2_place): the C++ and numpy schedules' placement law
+        (each bucket ceil(count/T) lanes, its k-th point on lane start +
+        k % lanes, round k // lanes) computed from the sorted ranks.  Each
+        block scans its window's buckets in shared memory, gives each of
+        its lanes its bucket, load, run remainder, round-0 rank and
+        stride, and writes every round's signed row (order's entry as it
+        is), with its share of bidx: the (perm, loads, bidx, runrem)
+        int32 tensors K1 and K4 take; `place_plain` keeps the torch-ops
+        law as its yardstick.
 
 The reference computes its gather indices inside one fused program and
 gathers table rows in chunks carried by `init`; K1 gathers by perm
@@ -35,7 +36,7 @@ mask, and a schedule serves any table of the same length.
 
 On the CPU every step runs its plain torch version (P1: the digits, a
 stable torch.sort and a searchsorted, the reference's three steps; P2:
-each kernel's plain version); on a CUDA device the P1 and P2 kernels
+the kernel's plain version); on a CUDA device the P1 and P2 kernels
 launch (or raise) and nothing falls back to torch ops or to the host
 schedule.
 """
@@ -58,9 +59,9 @@ P1_KERNELS = ("p1_digits", "p1_hist", "p1_scan", "p1_scatter")
 # against the library once (_p1_lib)
 P1_TILE = 8192
 P1_WARPS = 8
-# the P2 kernels (csrc/sched_place.cu), each launched once a schedule
-# with an active window
-P2_KERNELS = ("p2_buckets", "p2_place")
+# the P2 kernel (csrc/sched_place.cu), launched once a schedule with an
+# active window
+P2_KERNELS = ("p2_place",)
 SCHED_KERNELS = P1_KERNELS + P2_KERNELS
 
 
@@ -163,7 +164,8 @@ class DevSchedMSM:
     def p1_plain(self, W: torch.Tensor):
         """Plain version of P1: the digits, a stable sort of each window's
         magnitudes and a search of the sorted keys for the histogram (the
-        reference's three steps); returns what p1 returns."""
+        reference's three steps), each index with its digit's sign in bit
+        31; returns what p1 returns."""
         B = self.sctx.B
         mags, signs = self.digits_plain(W)
         skeys, order = torch.sort(mags, dim=1, stable=True)
@@ -171,11 +173,12 @@ class DevSchedMSM:
         bounds = torch.searchsorted(
             skeys, qs.expand(mags.shape[0], -1).contiguous())
         counts = (bounds[:, 1:] - bounds[:, :-1]).to(torch.int32)
-        return order.to(torch.int32), signs, counts
+        return _signed(order, signs), signs, counts
 
     def p1(self, W: torch.Tensor):
         """(n, nwords) int32 words -> (order (nwin, n) int32, each window's
-        scalars stably sorted by digit magnitude; signs (nwin, n) int8;
+        scalars stably sorted by digit magnitude, the digit's sign in bit
+        31 (the perm entry P2 places); signs (nwin, n) int8;
         counts (nwin, B + 2) int32, counts[w, b] the scalars of digit
         magnitude b in window w, column B + 1 the overflow bin).  On a CUDA
         tensor the four P1 kernels (p1_tiles); on a CPU one p1_plain."""
@@ -195,7 +198,7 @@ class DevSchedMSM:
         tiled emulation."""
         mags, signs = self.digits(W)
         starts, counts = self.tile_scan(self.tile_hist(mags))
-        return self.scatter(mags, starts, counts), signs, counts
+        return self.scatter(mags, signs, starts, counts), signs, counts
 
     def _launch(self, kernel, entry, *args):
         """The C entry `entry` of csrc/sched_digits.cu (a P1 kernel) or
@@ -265,20 +268,26 @@ class DevSchedMSM:
                      hist.data_ptr(), nwin, nt, K, counts.data_ptr())
         return hist, counts
 
-    def scatter(self, mags: torch.Tensor, starts: torch.Tensor,
-                counts: torch.Tensor):
-        """p1_scatter: mags (nwin, n), tile_scan's starts and counts ->
-        order (nwin, n) int32.  Each tile is P1_WARPS contiguous warp
-        segments; a key's slot is the window's keys of lower magnitude,
-        plus its magnitude's keys in the earlier tiles, in the earlier
-        segments of its tile and before it in its own segment."""
+    def scatter(self, mags: torch.Tensor, signs: torch.Tensor,
+                starts: torch.Tensor, counts: torch.Tensor):
+        """p1_scatter: mags and signs (nwin, n), tile_scan's starts and
+        counts -> order (nwin, n) int32, each index with its digit's sign
+        in bit 31.  Each tile is P1_WARPS contiguous warp segments; a key's
+        slot is the window's keys of lower magnitude, plus its magnitude's
+        keys in the earlier tiles, in the earlier segments of its tile and
+        before it in its own segment."""
         nwin, n = mags.shape
         if not self._on_card("p1_scatter", mags):
-            return self.scatter_plain(mags, starts, counts)
+            return self.scatter_plain(mags, signs, starts, counts)
+        if signs.shape != mags.shape or signs.dtype != torch.int8 \
+                or signs.device != mags.device or not signs.is_contiguous():
+            raise ValueError("p1_scatter: signs (nwin, n) int8 beside mags "
+                             "expected")
         order = torch.empty((nwin, n), dtype=torch.int32, device=mags.device)
         self._launch("p1_scatter", "pcd_p1_scatter",
-                     mags.data_ptr(), nwin, n, self.sctx.B + 2,
-                     starts.data_ptr(), counts.data_ptr(), order.data_ptr())
+                     mags.data_ptr(), signs.data_ptr(), nwin, n,
+                     self.sctx.B + 2, starts.data_ptr(), counts.data_ptr(),
+                     order.data_ptr())
         return order
 
     # the plain versions of p1_hist, p1_scan and p1_scatter, on any device;
@@ -300,8 +309,9 @@ class DevSchedMSM:
         starts = torch.cumsum(h, 1) - h
         return starts.to(torch.int32), h.sum(1).to(torch.int32)
 
-    def scatter_plain(self, mags: torch.Tensor, starts: torch.Tensor,
-                      counts: torch.Tensor, tile: int = P1_TILE):
+    def scatter_plain(self, mags: torch.Tensor, signs: torch.Tensor,
+                      starts: torch.Tensor, counts: torch.Tensor,
+                      tile: int = P1_TILE):
         nwin, n = mags.shape
         K, nt = self.sctx.B + 2, -(-n // tile)
         seg, ns = tile // P1_WARPS, nt * P1_WARPS
@@ -326,9 +336,9 @@ class DevSchedMSM:
         slot = (base.gather(1, key.gather(1, idx))
                 + starts.view(nwin, nt * K).to(torch.int64).gather(1, tk)
                 + earlier.gather(1, srt) + rank)
-        order = torch.empty((nwin, n), dtype=torch.int32, device=dev)
-        order.scatter_(1, slot, idx.to(torch.int32))
-        return order
+        order = torch.empty((nwin, n), dtype=torch.int64, device=dev)
+        order.scatter_(1, slot, idx)
+        return _signed(order, signs)
 
     # -- host: shapes from the fetched histogram ---------------------------
     def _pick_shapes(self, counts: np.ndarray):
@@ -354,87 +364,47 @@ class DevSchedMSM:
         return act, T, maxrun
 
     # -- P2's placement ------------------------------------------------------
-    def place(self, order, signs, counts, act, T):
+    def place(self, order, counts, act, T):
         """The placement law over the active windows `act` (ascending), on
-        the device of P1's (order, signs, counts): (perm (nact, T, L)
-        int32, row index with the digit sign in bit 31, 0 past a lane's
-        load; loads (nact, L); bidx (nact, B), each bucket's first lane as
-        a global lane over the nact windows, sentinel nact * L; runrem
-        (nact, L), lanes left in the lane's run, 0 on an unused lane).  On
-        a CUDA device the two P2 kernels, on the CPU their plain versions
-        (place_tiles); T at least the fit of every active window."""
+        the device of P1's (order, counts): (perm (nact, T, L) int32, row
+        index with the digit sign in bit 31 (order's entry), 0 past a
+        lane's load; loads (nact, L); bidx (nact, B), each bucket's first
+        lane as a global lane over the nact windows, sentinel nact * L;
+        runrem (nact, L), lanes left in the lane's run, 0 on an unused
+        lane).  On a CUDA device the P2 kernel, on the CPU its plain
+        version; T at least the fit of every active window."""
         s = self.sctx
         nwin = s.nwin
-        if not (order.dtype == torch.int32 and signs.dtype == torch.int8
-                and counts.dtype == torch.int32 and order.dim() == 2
-                and signs.shape == order.shape and order.shape[0] == nwin
+        if not (order.dtype == torch.int32 and counts.dtype == torch.int32
+                and order.dim() == 2 and order.shape[0] == nwin
                 and tuple(counts.shape) == (nwin, s.B + 2)):
-            raise ValueError("P2: P1's order (nwin, n) int32, signs int8 and "
-                             "counts (nwin, B + 2) int32 expected")
-        if len({order.device, signs.device, counts.device}) != 1 or not all(
-                x.is_contiguous() for x in (order, signs, counts)):
-            raise ValueError("P2: order, signs and counts contiguous, on "
-                             "one device")
+            raise ValueError("P2: P1's order (nwin, n) int32 and counts "
+                             "(nwin, B + 2) int32 expected")
+        if order.device != counts.device or not (
+                order.is_contiguous() and counts.is_contiguous()):
+            raise ValueError("P2: order and counts contiguous, on one "
+                             "device")
         if not act or list(act) != sorted(set(act)) or act[0] < 0 \
                 or act[-1] >= nwin or T < 1:
             raise ValueError(f"P2: active windows {act} or T = {T} refused")
-        return self.place_tiles(order, signs, counts, act, T)
-
-    def place_tiles(self, order, signs, counts, act, T):
-        """P2 as its kernels compute it: p2_buckets, then p2_place.  On a
-        CPU tensor each is its plain version, so this is the kernels'
-        emulation."""
-        bidx, loads, runrem, lanes = self.p2_buckets(counts, act, T)
-        return self.p2_place(order, signs, act, T, loads, lanes), loads, \
-            bidx, runrem
-
-    def p2_buckets(self, counts, act, T):
-        """p2_buckets: counts (nwin, B + 2) int32 -> (bidx (nact, B), loads
-        (nact, L), runrem (nact, L), lanes (nact, L, 2)) int32, lanes[i,
-        l] the lane's round-0 sorted rank and its bucket's lane count."""
-        if not self._on_card("p2_buckets", counts):
-            return self.p2_buckets_plain(counts, act, T)
-        s = self.sctx
-        nact, L = len(act), s.L
-        if counts.dtype != torch.int32 or counts.shape != (s.nwin, s.B + 2):
-            raise ValueError("p2_buckets: counts (nwin, B + 2) int32 "
-                             "expected")
-        new = lambda *shape: torch.empty(shape, dtype=torch.int32,
-                                         device=counts.device)
-        bidx, loads, runrem = new(nact, s.B), new(nact, L), new(nact, L)
-        lanes = new(nact, L, 2)
-        self._launch("p2_buckets", "pcd_p2_buckets", counts.data_ptr(),
-                     s.nwin, s.B + 2, _wins(act), nact, s.B, T, L,
-                     bidx.data_ptr(), loads.data_ptr(), runrem.data_ptr(),
-                     lanes.data_ptr())
-        return bidx, loads, runrem, lanes
-
-    def p2_place(self, order, signs, act, T, loads, lanes):
-        """p2_place: P1's order and signs, p2_buckets' loads and lanes ->
-        perm (nact, T, L) int32."""
         if not self._on_card("p2_place", order):
-            return self.p2_place_plain(order, signs, act, T, loads, lanes)
-        nwin, n = order.shape
-        nact, L = len(act), self.sctx.L
-        if not (order.dtype == torch.int32 and signs.dtype == torch.int8
-                and signs.shape == order.shape and loads.shape == (nact, L)
-                and lanes.shape == (nact, L, 2)
-                and loads.dtype == lanes.dtype == torch.int32
-                and all(x.is_contiguous() and x.device == order.device
-                        for x in (signs, loads, lanes))):
-            raise ValueError("p2_place: P1's order and signs, p2_buckets' "
-                             "loads and lanes expected")
-        perm = torch.empty((nact, T, L), dtype=torch.int32,
-                           device=order.device)
+            return self.p2_place_plain(order, counts, act, T)
+        nact, L, B = len(act), s.L, s.B
+        new = lambda *shape: torch.empty(shape, dtype=torch.int32,  # noqa
+                                         device=order.device)
+        perm, loads, bidx, runrem = (new(nact, T, L), new(nact, L),
+                                     new(nact, B), new(nact, L))
         self._launch("p2_place", "pcd_p2_place", order.data_ptr(),
-                     signs.data_ptr(), nwin, n, _wins(act), nact, T, L,
-                     loads.data_ptr(), lanes.data_ptr(), perm.data_ptr())
-        return perm
+                     counts.data_ptr(), nwin, order.shape[1], B + 2,
+                     _wins(act), nact, B, T, L, perm.data_ptr(),
+                     loads.data_ptr(), bidx.data_ptr(), runrem.data_ptr())
+        return perm, loads, bidx, runrem
 
-    # the plain versions of p2_buckets and p2_place, on any device: the
-    # kernels' formulas (a lane's bucket the last one starting at or
-    # before it: the binary search of p2_buckets)
-    def p2_buckets_plain(self, counts, act, T):
+    def p2_place_plain(self, order, counts, act, T):
+        """Plain version of p2_place, on any device: the kernel's formulas
+        (each window's scans of lanes and counts, a lane's bucket the last
+        one starting at or before it, its load, run remainder, round-0
+        rank and stride, then order's entry of each round's rank)."""
         s = self.sctx
         L, B = s.L, s.B
         dev = counts.device
@@ -446,7 +416,8 @@ class DevSchedMSM:
         starts = torch.cat([zero, torch.cumsum((cnz + (T - 1)) // T, 1)], 1)
         off = cnt[:, :1] + torch.cat([zero, torch.cumsum(cnz, 1)], 1)
         glob = torch.arange(nact, dtype=torch.int64, device=dev)[:, None] * L
-        bidx = torch.where(cnz > 0, starts[:, :B] + glob, nact * L)
+        bidx = torch.where(starts[:, 1:] > starts[:, :B], starts[:, :B] + glob,
+                           nact * L)
         lane = torch.arange(L, dtype=torch.int64, device=dev).expand(nact, L)
         b = torch.searchsorted(starts[:, :B].contiguous(), lane.contiguous(),
                                right=True) - 1
@@ -459,31 +430,19 @@ class DevSchedMSM:
         lb1 = torch.where(valid, lb, 1)
         loads = torch.where(valid, (cz - j + lb1 - 1) // lb1, 0)
         runrem = torch.where(valid, lb - j, 0)
-        lanes = torch.stack([torch.where(valid, of + j, 0),
-                             torch.where(valid, lb, 0)], -1)
-        return tuple(x.to(torch.int32).contiguous()
-                     for x in (bidx, loads, runrem, lanes))
-
-    def p2_place_plain(self, order, signs, act, T, loads, lanes):
-        L = self.sctx.L
-        dev = order.device
-        nact = len(act)
-        aidx = torch.tensor(act, dtype=torch.int64, device=dev)
         t = torch.arange(T, dtype=torch.int64, device=dev).view(1, T, 1)
-        live = t < loads.to(torch.int64)[:, None, :]
-        k = (lanes[..., 0].to(torch.int64)[:, None, :]
-             + t * lanes[..., 1].to(torch.int64)[:, None, :])
-        pidx = order.index_select(0, aidx).gather(
-            1, torch.where(live, k, 0).view(nact, T * L)).to(torch.int64)
-        neg = (signs.index_select(0, aidx).gather(1, pidx) != 0).to(
-            torch.int64)
-        perm = torch.where(live.view(nact, T * L), pidx - (neg << 31), 0)
-        return perm.to(torch.int32).view(nact, T, L)
+        live = t < loads[:, None, :]
+        k = (torch.where(valid, of + j, 0)[:, None, :]
+             + t * torch.where(valid, lb, 0)[:, None, :])
+        perm = torch.where(live.view(nact, T * L), order.index_select(
+            0, aidx).gather(1, torch.where(live, k, 0).view(nact, T * L)), 0)
+        return tuple(x.to(torch.int32).contiguous() for x in (
+            perm.view(nact, T, L), loads, bidx, runrem))
 
-    def place_plain(self, order, signs, counts, act, T):
+    def place_plain(self, order, counts, act, T):
         """The placement law as torch ops (what place returns), the
-        yardstick of the P2 kernels in the tests and chip_smoke.py; no path
-        calls it."""
+        yardstick of the P2 kernel in the tests and chip_smoke.py; the
+        sign in perm's bit 31 is order's.  No path calls it."""
         s = self.sctx
         L, B = s.L, s.B
         dev = order.device
@@ -515,9 +474,9 @@ class DevSchedMSM:
         live = (t < loads[:, None, :]).view(nact, T * L)
         k = (off_b.gather(1, b_l)[:, None, :] + t * lb_l[:, None, :]
              + j_l[:, None, :]).view(nact, T * L)
-        pidx = order.index_select(0, aidx).gather(
+        ent = order.index_select(0, aidx).gather(
             1, torch.where(live, k, 0)).to(torch.int64)
-        neg = signs.index_select(0, aidx).gather(1, pidx).to(torch.int64)
+        pidx, neg = ent & 0x7FFFFFFF, (ent < 0).to(torch.int64)
         perm = torch.where(live, pidx - (neg << 31), 0)   # sign in bit 31
         return tuple(x.to(torch.int32).contiguous() for x in (
             perm.view(nact, T, L), loads, bidx, runrem))
@@ -526,12 +485,12 @@ class DevSchedMSM:
         """Device (n, nwords) int32 scalar words -> DevSchedule on W's
         device.  Enqueued on the current stream; the histogram fetch waits
         for that stream.  Raises when a scalar is wider than scalar_bits."""
-        order, signs, counts = self.p1(W)
+        order, _, counts = self.p1(W)
         counts_h = counts.cpu().numpy()
         if counts_h[:, -1].any():
             raise ValueError("scalar exceeds declared scalar_bits")
         act, T, maxrun = self._pick_shapes(counts_h)
-        tensors = self.place(order, signs, counts, act, T) if act else None
+        tensors = self.place(order, counts, act, T) if act else None
         return DevSchedule(act, T, maxrun, W.device, tensors)
 
     # -- entry points --------------------------------------------------------
@@ -560,8 +519,15 @@ class DevSchedMSM:
 
 
 def _wins(act):
-    """The active windows as the P2 entries' int array."""
+    """The active windows as the P2 entry's int array."""
     return (ctypes.c_int * len(act))(*act)
+
+
+def _signed(order, signs):
+    """order (nwin, n) int64 indices -> int32 with each index's digit sign
+    (signs at the index, in its window) in bit 31."""
+    neg = signs.gather(1, order).to(torch.int64) != 0
+    return (order - (neg.to(torch.int64) << 31)).to(torch.int32)
 
 
 @lru_cache(maxsize=None)

@@ -4,7 +4,7 @@ csrc/host_check.cpp runs the carry-chain instruction sequence of the card
 in emulation (csrc/ptx.cuh), so the Fp^D product and both RCB15 formulas
 are checked limb for limb without a card, in every field form, on random
 field elements and the edge values 0, 1, p - 1 and the identity; so are
-K8's Fp^D inversion, its affine store and its whole window loop.  The
+K8's Fp^D inversion, its affine store and its whole tile body.  The
 plain versions are themselves held to pcd_tpu by test_torch_field_ec.py.
 Port-only: nothing here imports JAX.
 """
@@ -126,13 +126,15 @@ def shapes(host_check):
     """The kernels' launch shapes as csrc/ec_group.cuh declares them (host
     op 6): K2's lanes an add by D (0: one thread through rcb_add, held to
     the plain version above; its group add is then checked at 3 lanes),
-    K3's lanes an add, threads a block and rows listed at once."""
+    K3's lanes an add, threads a block and rows listed at once; K8's
+    splits a scalar and lanes an add by D."""
     out = subprocess.run([host_check], input=np.array(
         [6, 1, 0], dtype=np.int32).tobytes(), capture_output=True,
         check=True, timeout=60).stdout
     v = np.frombuffer(out, dtype=np.int32).tolist()
     return {"k2_g": {1: v[0], 2: v[1], 3: v[2]}, "k3_g": v[6],
-            "k3_threads": v[7], "k3_tile": v[9]}
+            "k3_threads": v[7], "k3_tile": v[9], "k8_s": v[10],
+            "k8_g": {1: v[11], 2: v[12], 3: v[13]}}
 
 
 def _run_grp(exe, ec, op, G, *arrays):
@@ -319,8 +321,8 @@ def test_madd_deal_rows(case, shapes):
         assert all(v == sorted(v) for v in per.values())
 
 
-# -- K8's inversion, affine store and window loop (csrc/field.cuh fe_inv,
-# csrc/ec.cuh pt_store_affine and fb_point) -------------------------------
+# -- K8's inversion, affine store and tile body (csrc/field.cuh fe_inv,
+# csrc/ec.cuh pt_store_affine, csrc/fixed_base.cuh) ------------------------
 
 @pytest.mark.parametrize("form", FORMS, ids=IDS)
 def test_fe_inv_matches_plain(form, host_check):
@@ -381,13 +383,23 @@ def _coeffs(e):
                                if hasattr(e, "to_prime_coeffs") else [e])]
 
 
-@pytest.mark.parametrize("form", [FORMS[0], FORMS[2], FORMS[3]],
-                         ids=[IDS[0], IDS[2], IDS[3]])
-def test_fb_point_matches_plain(form, host_check):
-    """fb_point (host op 9), K8's whole body for one scalar, against
-    FixedBaseDevice.mul_digits_plain on the same window table and digits:
-    0, 1, r - 1, every low byte 0xFF, a top-window wrap and random
-    scalars."""
+K8_FORMS = [FORMS[0], FORMS[1], FORMS[2], FORMS[3], FORMS[4], FORMS[6]]
+
+
+@pytest.mark.parametrize("split", ["one", "most"])
+@pytest.mark.parametrize("form", K8_FORMS,
+                         ids=[IDS[FORMS.index(f)] for f in K8_FORMS])
+def test_fb_point_matches_plain(form, split, host_check, shapes):
+    """K8's body (host op 9: the split windows on the group add, their
+    join, the tile's product tree and one inversion, the stores) at its
+    lanes an add for D, at one split a scalar and at the most the launch
+    may pick (K8_SHAPE's, at least 2), against
+    FixedBaseDevice.mul_digits_plain on the same window table and digits,
+    in tiles of four scalars: a tile with 0, 1, r - 1 and every low byte
+    0xFF, a tile of zeros only, a tile with both top-window wraps (the
+    last add cancels the sum to the identity, or doubles it) and random
+    scalars, and a ragged tile of two.  The toy curves run the full
+    products by a, the real ones the small-a form."""
     from pcd_tpu_torch.ops.fixed_base import fixed_base_device
 
     ec = _ec(form)
@@ -397,18 +409,26 @@ def test_fb_point_matches_plain(form, host_check):
                            cfg.Fr.BITS)
     r, top = cfg.Fr.MODULUS, 8 * (fb.nwin - 1)
     rng = random.Random(9)
-    wrap = next(low + (d << top) for d in range(1, 256)
-                for low in ((-(d << top)) % r,) if low < 1 << top)
-    sc = [0, 1, r - 1, (1 << top) - 1, wrap] + [rng.randrange(r)
-                                                for _ in range(6)]
+    cancel, double = (next(low + (d << top) for d in range(1, 256)
+                           for low in (f(d << top) % r,) if low < 1 << top)
+                      for f in (lambda x: -x, lambda x: x))
+    sc = ([0, 1, r - 1, (1 << top) - 1] + [0] * 4
+          + [cancel, rng.randrange(r), double, rng.randrange(r)]
+          + [rng.randrange(r) for _ in range(2)])
+    S = 1 if split == "one" else max(2, shapes["k8_s"])
+    G = shapes["k8_g"][ec.d]
     dg = fb.digits_from_ints(sc)
     want = fb.mul_digits_plain(torch.from_numpy(dg)).numpy()
     req = (np.array([9, ec.d, len(sc)], dtype=np.int32).tobytes()
-           + ec.kconsts.tobytes() + np.int32(fb.nwin).tobytes()
+           + ec.kconsts.tobytes() + np.int32(G).tobytes()
+           + ec.ksmall.tobytes()
+           + np.array([S, 4, fb.nwin], dtype=np.int32).tobytes()
            + fb.table_host.tobytes() + np.ascontiguousarray(dg.T).tobytes())
     out = subprocess.run([host_check], input=req, capture_output=True,
                          check=True, timeout=120).stdout
-    got = np.frombuffer(out, dtype=np.int32).reshape(want.shape)
+    res = np.frombuffer(out, dtype=np.int32)
+    assert bool(res[0]) == ec.small_a
+    got = res[1:].reshape(want.shape)
     assert np.array_equal(got, want)
-    assert got[0, 0, 0, NLIMB - 1] == np.int32(-(1 << 31))
-    assert got[4, 0, 0, NLIMB - 1] == np.int32(-(1 << 31))   # s = 0 mod r
+    inf = got[:, 0, 0, NLIMB - 1] == np.int32(-(1 << 31))
+    assert inf[[0, 4, 5, 6, 7, 8]].all() and inf.sum() == 6   # s = 0 mod r

@@ -437,8 +437,11 @@ def test_p1_kernels_match_plain(case, carry_win, cuda_device):
     starts_p, counts_p = dm.scan_plain(hist)
     starts, counts_k = dm.tile_scan(hist)
     assert torch.equal(starts, starts_p) and torch.equal(counts_k, counts_p)
-    assert torch.equal(dm.scatter(mags, starts, counts_k),
-                       dm.scatter_plain(mags, starts, counts_k))
+    _, signs_k = dm.digits(W)
+    assert torch.equal(dm.scatter(mags, signs_k, starts, counts_k),
+                       dm.scatter_plain(mags, signs_k, starts, counts_k))
+    idx = order.to(torch.int64) & 0x7FFFFFFF        # bit 31: the sign
+    assert torch.equal(order < 0, signs.to(torch.int64).gather(1, idx) != 0)
     torch.cuda.synchronize()
 
 
@@ -467,36 +470,36 @@ P2_CASES = [("dense", 12), ("one_bin", 12), ("low_entropy", 12),
 @pytest.mark.parametrize("case,c", P2_CASES,
                          ids=[f"{a}-c{b}" for a, b in P2_CASES])
 def test_p2_kernels_match_plain(case, c, cuda_device):
-    """The two P2 kernels on P1's output for 298-bit scalars, each against
-    its plain version on the same inputs and place against place_plain
-    (the torch-ops law), at the fitted T and above it, element for
-    element; each kernel launched once a placement.  c = 14 takes
-    p2_buckets past 48 KB of shared memory, c = 5 gives 60 windows; a T
-    the entry refuses raises."""
+    """The P2 kernel on P1's output for 298-bit scalars, against its plain
+    version and against place_plain (the torch-ops law), at the fitted T
+    and above it, element for element; launched once a placement.  c =
+    14 takes p2_place past 48 KB of shared memory, c = 5 gives 60
+    windows; a T the entry refuses raises."""
     from pcd_tpu_torch import native
     from pcd_tpu_torch.ops.msm_stream_dev import P2_KERNELS, DevSchedMSM
 
     cfg = M.mnt_cycle().main
     dm = DevSchedMSM(StreamMSMCtx(cfg.g1, cfg.Fr.BITS, c=c, lanes=8192))
     W = dm.upload(native.ints_to_limbs(_p1_scalars(case, cfg)), cuda_device)
-    order, signs, counts = dm.p1(W)
+    order, _, counts = dm.p1(W)
     act, T, _ = dm._pick_shapes(counts.cpu().numpy())
     for t in (T, T + 8):
         before = {k: launch_counts().get((k, dm.form), 0) for k in P2_KERNELS}
-        got = dm.place(order, signs, counts, act, t)
+        got = dm.place(order, counts, act, t)
         assert {k: launch_counts().get((k, dm.form), 0) - before[k]
                 for k in P2_KERNELS} == dict.fromkeys(P2_KERNELS, 1)
-        for g, w in zip(got, dm.place_plain(order, signs, counts, act, t)):
-            assert g.dtype == w.dtype and torch.equal(g, w)
-        steps = dm.p2_buckets(counts, act, t)
-        for g, w in zip(steps, dm.p2_buckets_plain(counts, act, t)):
-            assert g.dtype == w.dtype and torch.equal(g, w)
-        _, loads, _, lanes = steps
-        assert torch.equal(
-            dm.p2_place(order, signs, act, t, loads, lanes),
-            dm.p2_place_plain(order, signs, act, t, loads, lanes))
-    with pytest.raises(RuntimeError, match="p2_buckets launch failed"):
-        dm.p2_buckets(counts, act, 0)
+        for want in (dm.place_plain(order, counts, act, t),
+                     dm.p2_place_plain(order, counts, act, t)):
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    from pcd_tpu_torch.ops.msm_stream_dev import _wins
+
+    s = dm.sctx
+    buf = torch.empty(1, dtype=torch.int32, device=cuda_device).data_ptr()
+    with pytest.raises(RuntimeError, match="p2_place launch failed"):
+        dm._launch("p2_place", "pcd_p2_place", order.data_ptr(),
+                   counts.data_ptr(), s.nwin, order.shape[1], s.B + 2,
+                   _wins(act), len(act), s.B, 0, s.L, buf, buf, buf, buf)
     torch.cuda.synchronize()
 
 

@@ -4,7 +4,8 @@ the toy cycle, on the CPU with the plain versions, c = 5, 6 and 8 on 128
 lanes:
 
   - P1's order, signs and counts equal pcd_tpu's `_p1` exactly (JAX on
-    the CPU), with and without a carry window, and `_pick_shapes` equal;
+    the CPU; the port's order with bit 31 masked, bit 31 the digit's
+    sign), with and without a carry window, and `_pick_shapes` equal;
   - the placement equals the host placement law (the numpy schedule of
     ops/msm_stream.py) at the same T, tensor for tensor, windows
     renumbered over the active ones;
@@ -17,7 +18,7 @@ lanes:
     pcd_tpu's DevSchedMSM.window_sums as points;
   - a toy Groth16 prove with msm_dispatch.SCHEDULER = "device" writes
     pcd_tpu's proof bytes, scheduling once for a/b1/b2/l and once for h
-    (each P1 and P2 kernel's plain version twice).
+    (each P1 kernel's and the P2 kernel's plain version twice).
 """
 
 import numpy as np
@@ -114,8 +115,9 @@ def _table(pc, points):
                                                           "carry_win"])
 @pytest.mark.parametrize("c", CS)
 def test_p1_matches_reference(toy, c, carry_win):
-    """Order, signs and counts of P1 equal pcd_tpu's `_p1` exactly; the
-    overflow bin stays empty."""
+    """Order, signs and counts of P1 equal pcd_tpu's `_p1` exactly, order
+    with bit 31 masked and bit 31 the sign of the digit at each index;
+    the overflow bin stays empty."""
     rc, pc, dm = _ctxs(toy, c, carry_win)
     r = toy[0].g1.order
     top = (1 << pc.scalar_bits) - 1
@@ -126,7 +128,11 @@ def test_p1_matches_reference(toy, c, carry_win):
     order, signs, counts = dm.p1(W)
     ro, rs, rcnt = RefDev(rc)._p1(W.shape[1])(
         jnp.asarray(RefDev(rc).limbs_u32(limbs)), None)
-    assert np.array_equal(order.numpy(), np.asarray(ro))
+    idx = order.numpy().astype(np.int64) & 0x7FFFFFFF
+    assert np.array_equal(idx, np.asarray(ro))
+    assert np.array_equal(order.numpy() < 0, np.take_along_axis(
+        np.asarray(rs), idx, 1) != 0)
+    order = torch.from_numpy(idx)
     assert np.array_equal(signs.numpy(), np.asarray(rs))
     assert np.array_equal(counts.numpy()[:, :-1], np.asarray(rcnt))
     assert not counts[:, -1].any()
@@ -284,8 +290,8 @@ def test_window_sums_match_reference(toy):
 
 def test_groth16_prove_device_scheduler(monkeypatch):
     """A toy Groth16 prove with every commitment MSM device-scheduled:
-    pcd_tpu's proof bytes; P1 and the P2 placement (place_tiles: each P2
-    kernel's plain version) run twice (the z vector shared by a/b1/b2/l,
+    pcd_tpu's proof bytes; P1 and the P2 placement (the P2 kernel's plain
+    version) run twice (the z vector shared by a/b1/b2/l,
     then h), K1 and K4 once per MSM."""
     from pcd_tpu.snark.groth16.native import Groth16 as RG16
     from pcd_tpu.utils import serialize as RS

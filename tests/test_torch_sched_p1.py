@@ -6,7 +6,10 @@ warp segments of 32), so every vector spans several tiles and a ragged
 last one; `DevSchedMSM.p1_tiles` on a CPU tensor is the same emulation at
 the kernels' own tile.  Held exactly (order, signs and counts) to the
 plain P1 (the digits, a stable torch.sort and a searchsorted) and to
-pcd_tpu's DevSchedMSM._p1 on JAX-CPU:
+pcd_tpu's DevSchedMSM._p1 on JAX-CPU, whose order is the argsort alone:
+the port's order carries each index's digit sign in bit 31 (p1_scatter
+stores the perm entry P2 places), so it is held to the reference with
+bit 31 masked, and bit 31 to the digit's sign:
 
   - c = 5, 6 and 8 on the toy cycle, with the carry absorbed by the top
     window and with a carry window of its own;
@@ -19,6 +22,8 @@ pcd_tpu's DevSchedMSM._p1 on JAX-CPU:
     column, where the reference has none;
   - p1_tiles at the kernels' tile of 8,192 scalars, on two full tiles and
     a ragged one;
+  - order's bit 31 against the reference's signs, through the plain P1
+    and the tiled path, on scalars with many negative digits;
   - the wrappers count one plain call per P1 kernel.
 """
 
@@ -90,7 +95,15 @@ def _emulate(dm, W, tile=TILE):
     plain version."""
     mags, signs = dm.digits(W)
     starts, counts = dm.scan_plain(dm.hist_plain(mags, tile))
-    return dm.scatter_plain(mags, starts, counts, tile), signs, counts
+    return dm.scatter_plain(mags, signs, starts, counts, tile), signs, counts
+
+
+def _unsigned(order, signs):
+    """order's indices with bit 31 masked, after checking that bit 31 is
+    the digit's sign at each index."""
+    idx = order.to(torch.int64) & 0x7FFFFFFF
+    assert torch.equal(order < 0, signs.to(torch.int64).gather(1, idx) != 0)
+    return idx
 
 
 def _equal(got, want):
@@ -112,7 +125,7 @@ def test_tiled_p1_matches_reference(c, carry_win, case):
     order, signs, counts = got
     ro, rs, rcnt = ref._p1(W.shape[1])(jnp.asarray(W.numpy().view(
         np.uint32)), None)
-    assert np.array_equal(order.numpy(), np.asarray(ro))
+    assert np.array_equal(_unsigned(order, signs).numpy(), np.asarray(ro))
     assert np.array_equal(signs.numpy(), np.asarray(rs))
     assert np.array_equal(counts.numpy()[:, :-1], np.asarray(rcnt))
     assert not counts[:, -1].any()
@@ -142,6 +155,29 @@ def test_tiled_p1_every_c(c):
     assert got[2].shape == (pc.nwin, pc.B + 2)
 
 
+@pytest.mark.parametrize("path", ["plain", "tiled"])
+@pytest.mark.parametrize("c", [5, 6, 8])
+def test_signed_order(c, path):
+    """order & 0x7FFFFFFF is the reference's stable argsort and bit 31 the
+    reference's digit sign at that index, through the plain P1 (torch.sort,
+    then the signs) and the tiled path (scatter_plain stages them with
+    the keys), on dense scalars whose digits are about half negative."""
+    ref, dm = _toy(c, False)
+    pc = dm.sctx
+    top = (1 << pc.scalar_bits) - 1
+    rng = np.random.default_rng(40 + c)
+    W = _words(dm, [int(x) & top for x in rng.integers(0, 1 << 62,
+                                                       size=N)])
+    order, signs, _ = dm.p1_plain(W) if path == "plain" else _emulate(dm, W)
+    ro, rs, _ = ref._p1(W.shape[1])(jnp.asarray(W.numpy().view(np.uint32)),
+                                    None)
+    idx = order.to(torch.int64) & 0x7FFFFFFF
+    assert np.array_equal(idx.numpy(), np.asarray(ro))
+    want = np.take_along_axis(np.asarray(rs), idx.numpy(), 1) != 0
+    assert np.array_equal((order < 0).numpy(), want)
+    assert 0.3 < want[:-1].mean() < 0.7
+
+
 def test_tiled_p1_overflow_bin():
     """A scalar wider than scalar_bits puts B + 1 in the absorbed top
     window: the tiled emulation and the plain P1 both count it in the
@@ -155,7 +191,7 @@ def test_tiled_p1_overflow_bin():
     order, signs, counts = _emulate(dm, W)
     _equal((order, signs, counts), dm.p1_plain(W))
     assert counts[:, -1].tolist() == [0] * (pc.nwin - 1) + [1]
-    assert order[-1, -1] == TILE + 9
+    assert order[-1, -1] == TILE + 9           # the top window: no sign
     with pytest.raises(ValueError, match="scalar_bits"):
         dm.schedule(W)
 

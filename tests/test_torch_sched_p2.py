@@ -1,10 +1,11 @@
-"""The device scheduler's P2 placement kernels (pcd_tpu_torch/csrc/
-sched_place.cu) emulated on the CPU, c = 5, 6 and 8 on 128 lanes of the
-toy cycle.  Each kernel's plain version (`p2_buckets_plain`,
-`p2_place_plain`) and their composition `DevSchedMSM.place_tiles` are held
-exactly to `place_plain` (the placement law as torch ops), and `place` to
-the numpy host law of the port and of pcd_tpu (its StreamMSMCtx.schedule
-on pcd_tpu's own digits, the law of DevSchedMSM._p2), window for window:
+"""The device scheduler's P2 placement kernel (pcd_tpu_torch/csrc/
+sched_place.cu, one launch) emulated on the CPU, c = 5, 6 and 8 on 128
+lanes of the toy cycle.  Its plain version (`p2_place_plain`, the
+kernel's formulas), which `place` runs on a CPU tensor, is held exactly
+to `place_plain` (the placement law as torch ops), and `place` to the
+numpy host law of the port and of pcd_tpu (its StreamMSMCtx.schedule on
+pcd_tpu's own digits, the law of DevSchedMSM._p2), window for window.
+Both read each entry's sign from bit 31 of P1's order:
 
   - dense scalars, sparse ones (windows 0 and 3 only: a gap between the
     active windows, so bidx's global lanes are renumbered), more points
@@ -12,8 +13,8 @@ on pcd_tpu's own digits, the law of DevSchedMSM._p2), window for window:
     ([3] * 500: one run of lanes) and all-zero scalars (no active window:
     no placement at all);
   - T at the fit and above it;
-  - the wrappers count one plain call of each P2 kernel a placement, and
-    `place` refuses what the kernels do not take.
+  - the wrapper counts one plain call of the P2 kernel a placement, and
+    `place` refuses what the kernel does not take.
 """
 
 import numpy as np
@@ -73,9 +74,9 @@ def _equal(got, want):
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("c", CS)
 def test_p2_plain_steps_match_place_plain(c, case):
-    """p2_buckets_plain then p2_place_plain, and place_tiles, equal
-    place_plain at the fitted T and above it; an all-zero vector has no
-    active window and schedules no placement."""
+    """p2_place_plain, and place on a CPU tensor, equal place_plain at the
+    fitted T and above it, every digit placed once; an all-zero vector has
+    no active window and schedules no placement."""
     dm, limbs, p1, act, T = _p1(c, case)
     if case == "all_zero":
         assert act == []
@@ -83,16 +84,15 @@ def test_p2_plain_steps_match_place_plain(c, case):
         assert dm.schedule(dm.upload(limbs, CPU)).tensors is None
         assert not any(k in P2_KERNELS for k, _ in tec.plain_counts())
         return
-    order, signs, _ = p1
+    order, _, counts = p1
     for t in (T, T + 3, T + 8):
-        want = dm.place_plain(*p1, act, t)
-        bidx, loads, runrem, lanes = dm.p2_buckets_plain(p1[2], act, t)
-        perm = dm.p2_place_plain(order, signs, act, t, loads, lanes)
-        _equal((perm, loads, bidx, runrem), want)
-        _equal(dm.place_tiles(*p1, act, t), want)
-        assert lanes.shape == (len(act), dm.sctx.L, 2)
-        assert torch.equal(lanes[..., 1] > 0, runrem > 0)
-        nz = p1[2][act, 1:dm.sctx.B + 1].sum(1)      # every digit placed
+        want = dm.place_plain(order, counts, act, t)
+        got = dm.p2_place_plain(order, counts, act, t)
+        _equal(got, want)
+        _equal(dm.place(order, counts, act, t), want)
+        _, loads, _, runrem = got
+        assert torch.equal(loads > 0, runrem > 0)
+        nz = counts[act, 1:dm.sctx.B + 1].sum(1)     # every digit placed
         assert torch.equal(loads.sum(1), nz)
 
 
@@ -107,8 +107,8 @@ def test_place_matches_reference_law(c, case):
     rc = RefCtx(RM.toy_cycle().main.g1, dm.sctx.scalar_bits, c=c, lanes=128)
     mags, signs = rc.digits_signed(limbs)
     ref = rc.schedule(mags, signs)
-    perm, loads, bidx, runrem = (x.numpy() for x in dm.place(*p1, act,
-                                                             ref.T))
+    perm, loads, bidx, runrem = (x.numpy() for x in dm.place(
+        p1[0], p1[2], act, ref.T))
     nact, L, nwin = len(act), dm.sctx.L, dm.sctx.nwin
     assert np.array_equal(perm.view(np.uint32), ref.perm_unpacked()[act])
     assert np.array_equal(loads, ref.loads[act])
@@ -131,7 +131,8 @@ def test_place_matches_host_law_above_fit(case):
     mags, signs = dm.sctx.digits_signed(limbs)
     for t in (T, T + 5):
         host = dm.sctx.schedule(mags, signs, T=t)
-        perm, loads, _, runrem = (x.numpy() for x in dm.place(*p1, act, t))
+        perm, loads, _, runrem = (x.numpy() for x in dm.place(
+            p1[0], p1[2], act, t))
         assert np.array_equal(perm, host.perm.view(np.int32)[act])
         assert np.array_equal(loads, host.loads[act])
         assert np.array_equal(runrem, host.runrem[act])
@@ -139,15 +140,17 @@ def test_place_matches_host_law_above_fit(case):
 
 
 def test_place_counts_one_plain_call_per_kernel():
-    """On a CPU tensor place and place_tiles each count one plain call of
-    each P2 kernel and launch nothing; place_plain counts nothing."""
-    dm, _, p1, act, T = _p1(8, "dense")
+    """On a CPU tensor place counts one plain call of the P2 kernel each
+    time and launches nothing; place_plain and p2_place_plain called
+    directly count nothing."""
+    dm, _, (order, _, counts), act, T = _p1(8, "dense")
     tec.reset_launch_counts()
-    dm.place_plain(*p1, act, T)
+    dm.place_plain(order, counts, act, T)
+    dm.p2_place_plain(order, counts, act, T)
     assert tec.plain_counts() == {}
-    dm.place(*p1, act, T)
+    dm.place(order, counts, act, T)
     assert tec.plain_counts() == {(k, dm.form): 1 for k in P2_KERNELS}
-    dm.place_tiles(*p1, act, T)
+    dm.place(order, counts, act, T)
     assert tec.plain_counts() == {(k, dm.form): 2 for k in P2_KERNELS}
     assert tec.launch_counts() == {}
 
@@ -156,19 +159,19 @@ def test_place_refuses_bad_operands():
     """No active window, unsorted or out-of-range windows, T below 1, P1
     tensors of another type or shape, and a device other than the CPU or
     a CUDA card are refused before any step runs."""
-    dm, _, (order, signs, counts), act, T = _p1(6, "sparse")
+    dm, _, (order, _, counts), act, T = _p1(6, "sparse")
     nwin = dm.sctx.nwin
     tec.reset_launch_counts()
     for bad_act, bad_T in (([], T), ([3, 0], T), ([0, nwin], T),
                            ([0, 0], T), (act, 0)):
         with pytest.raises(ValueError, match="P2"):
-            dm.place(order, signs, counts, bad_act, bad_T)
-    for o, s, cn in ((order.long(), signs, counts),
-                     (order, signs.int(), counts),
-                     (order, signs, counts[:, :-1].contiguous()),
-                     (order[:-1], signs[:-1], counts[:-1])):
+            dm.place(order, counts, bad_act, bad_T)
+    for o, cn in ((order.long(), counts), (order, counts.long()),
+                  (order, counts[:, :-1].contiguous()),
+                  (order[:-1], counts[:-1]),
+                  (order.t().contiguous().t(), counts)):
         with pytest.raises(ValueError, match="P2"):
-            dm.place(o, s, cn, act, T)
+            dm.place(o, cn, act, T)
     assert tec.plain_counts() == {}
-    with pytest.raises(ValueError, match="p2_buckets"):
-        dm.p2_buckets(counts.to("meta"), act, T)
+    with pytest.raises(ValueError, match="p2_place"):
+        dm.place(order.to("meta"), counts.to("meta"), act, T)
