@@ -21,6 +21,8 @@ import sys
 
 import numpy as np
 
+from ..utils.profiling import span
+
 NL = 5
 _BYTES = NL * 8
 
@@ -597,18 +599,21 @@ def msm_schedule(limbs: np.ndarray, inf, c: int, nwin: int, L: int,
     nullp = ctypes.POINTER(ctypes.c_uint32)()
     nulli = ctypes.POINTER(ctypes.c_int32)()
     cw = 1 if carry_win else 0
-    T = lib.pcd_msm_schedule(n, c, nwin, L, B, 0, cw, _u64p(limbs), nl,
-                             inf_p, nullp, nulli, nulli)
+    with span("sched_fit"):
+        T = lib.pcd_msm_schedule(n, c, nwin, L, B, 0, cw, _u64p(limbs), nl,
+                                 inf_p, nullp, nulli, nulli)
     if T <= 0:
         return None
-    perm = np.zeros((nwin, T * L), dtype=np.uint32)
-    loads = np.zeros((nwin, L), dtype=np.int32)
-    bidx = np.zeros((nwin, B), dtype=np.int32)
-    rc = lib.pcd_msm_schedule(
-        n, c, nwin, L, B, T, cw, _u64p(limbs), nl, inf_p,
-        perm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        loads.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        bidx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    with span("sched_alloc"):
+        perm = np.zeros((nwin, T * L), dtype=np.uint32)
+        loads = np.zeros((nwin, L), dtype=np.int32)
+        bidx = np.zeros((nwin, B), dtype=np.int32)
+    with span("sched_place"):
+        rc = lib.pcd_msm_schedule(
+            n, c, nwin, L, B, T, cw, _u64p(limbs), nl, inf_p,
+            perm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            loads.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            bidx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     if rc < 0:
         raise RuntimeError(f"pcd_msm_schedule failed rc={rc}")
     return perm.reshape(nwin, T, L), loads, bidx, T

@@ -32,6 +32,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from .ec import ec_ctx
 
 
@@ -83,13 +84,14 @@ class StreamSchedule:
 
     def on(self, device):
         """(perm, loads, bidx, runrem) int32 tensors on `device`, uploaded
-        once."""
+        once (counter h2d_bytes: their bytes)."""
         key = str(device)
         hit = self._dev.get(key)
         if hit is None:
-            hit = tuple(torch.from_numpy(np.ascontiguousarray(a).view(
-                np.int32)).to(device) for a in (self.perm, self.loads,
-                                                self.bidx, self.runrem))
+            arrs = [np.ascontiguousarray(a).view(np.int32) for a in (
+                self.perm, self.loads, self.bidx, self.runrem)]
+            count("h2d_bytes", sum(a.nbytes for a in arrs))
+            hit = tuple(torch.from_numpy(a).to(device) for a in arrs)
             self._dev[key] = hit
         return hit
 
@@ -234,7 +236,8 @@ class StreamMSMCtx:
         if out is None:
             raise RuntimeError("native msm_schedule failed")
         perm, loads, bidx, T = out
-        return StreamSchedule(perm, loads, bidx, T, self.L)
+        with span("sched_finish"):
+            return StreamSchedule(perm, loads, bidx, T, self.L)
 
     # -- tables ---------------------------------------------------------------
     def table_from_limbs(self, xs, ys, inf, device) -> torch.Tensor:
@@ -300,9 +303,11 @@ class StreamMSMCtx:
         (ops/msm_stream_dev.py).  No window: nothing launches."""
         if not sched.act:
             return self.ec.identity((0,), table.device)
-        perm, loads, bidx, runrem = sched.on(table.device)
-        accs = self.ec.madd_accumulate(table, perm, loads)
-        return self._finish(accs, bidx, runrem)
+        with span("sched_upload"):
+            perm, loads, bidx, runrem = sched.on(table.device)
+        with span("launch"):
+            accs = self.ec.madd_accumulate(table, perm, loads)
+            return self._finish(accs, bidx, runrem)
 
     def window_sums_async(self, table, sched):
         """Enqueue the device pipeline without waiting: returns (window
@@ -318,9 +323,11 @@ class StreamMSMCtx:
     @staticmethod
     def collect(ws, ev) -> np.ndarray:
         """Wait for an enqueued window_sums_async and fetch it."""
-        if ev is not None:
-            ev.synchronize()
-        return ws.cpu().numpy()
+        with span("collect_wait"):
+            if ev is not None:
+                ev.synchronize()
+        with span("collect_fetch"):
+            return ws.cpu().numpy()
 
     # -- host tail ---------------------------------------------------------
     def horner_host(self, wsn, act=None) -> object:

@@ -49,6 +49,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from .ec import _LAUNCHES, _PLAIN
 from .msm_stream import StreamMSMCtx, stream_ctx
 
@@ -122,10 +123,12 @@ class DevSchedMSM:
             "<i4").reshape(n, -1)
 
     def upload(self, limbs: np.ndarray, device) -> torch.Tensor:
-        """Host limb rows -> (n, 2 NL) int32 words on `device`."""
+        """Host limb rows -> (n, 2 NL) int32 words on `device` (counter
+        h2d_bytes: their bytes)."""
         W = self.limbs_u32(limbs)
         if not W.flags.writeable:             # torch wants a writable view
             W = W.copy()
+        count("h2d_bytes", W.nbytes)
         return torch.from_numpy(W).to(device)
 
     # -- P1: digits, sort, histogram ----------------------------------------
@@ -486,11 +489,13 @@ class DevSchedMSM:
         device.  Enqueued on the current stream; the histogram fetch waits
         for that stream.  Raises when a scalar is wider than scalar_bits."""
         order, _, counts = self.p1(W)
-        counts_h = counts.cpu().numpy()
+        with span("sched_fetch"):
+            counts_h = counts.cpu().numpy()
         if counts_h[:, -1].any():
             raise ValueError("scalar exceeds declared scalar_bits")
         act, T, maxrun = self._pick_shapes(counts_h)
-        tensors = self.place(order, counts, act, T) if act else None
+        with span("sched_place"):
+            tensors = self.place(order, counts, act, T) if act else None
         return DevSchedule(act, T, maxrun, W.device, tensors)
 
     # -- entry points --------------------------------------------------------

@@ -25,7 +25,7 @@ from dataclasses import dataclass
 from ..gadgets.fp import Boolean, UInt8, fpvar_class
 from ..gadgets.inputs import repacked_len
 from ..r1cs.system import ConstraintSystem
-from ..utils.profiling import span
+from ..utils.profiling import request, span
 from ..utils.rng import test_rng
 from .api import PCDError, PCDPredicate
 
@@ -394,6 +394,7 @@ class ECCyclePCD:
         return pk, vk
 
     # ------------------------------------------------------------------
+    @request()
     def prove(self, pk: ECCyclePCDPK, predicate: PCDPredicate, msg, witness,
               prior_msgs, prior_proofs, rng):
         ic = self.ic

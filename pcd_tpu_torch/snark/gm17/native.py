@@ -43,7 +43,7 @@ from dataclasses import dataclass
 from ...msm.host import fixed_base_many, msm as host_msm
 from ...poly.domain import EvaluationDomain
 from ...r1cs.system import ConstraintSystem
-from ...utils.profiling import span
+from ...utils.profiling import in_request, span
 from ..api import SNARKError
 
 
@@ -264,14 +264,15 @@ class GM17:
         return futs
 
     def _stream_launch_bg(self, pk, z_ext, n_inst):
-        """_stream_launch from a background thread when the SAP-extended
-        assignment reaches STREAM_MIN: returns its future, else None."""
+        """_stream_launch from a background thread, in this thread's
+        profiling request, when the SAP-extended assignment reaches
+        STREAM_MIN: returns its future, else None."""
         from concurrent.futures import ThreadPoolExecutor
 
         if z_ext.shape[0] < self.STREAM_MIN:
             return None
         ex = ThreadPoolExecutor(max_workers=1)
-        fut = ex.submit(self._stream_launch, pk, z_ext, n_inst)
+        fut = ex.submit(in_request(self._stream_launch), pk, z_ext, n_inst)
         ex.shutdown(wait=False)
         return fut
 

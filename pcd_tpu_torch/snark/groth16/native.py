@@ -38,7 +38,7 @@ from dataclasses import dataclass
 from ...msm.host import msm as host_msm
 from ...poly.domain import EvaluationDomain
 from ...r1cs.system import ConstraintSystem
-from ...utils.profiling import span
+from ...utils.profiling import in_request, span
 from ..api import SNARKError
 
 
@@ -157,11 +157,12 @@ class Groth16:
         return futs
 
     def _stream_launch_bg(self, pk, z_limbs, n_inst):
-        """_stream_launch from a background thread: returns its future."""
+        """_stream_launch from a background thread, in this thread's
+        profiling request: returns its future."""
         from concurrent.futures import ThreadPoolExecutor
 
         ex = ThreadPoolExecutor(max_workers=1)
-        fut = ex.submit(self._stream_launch, pk, z_limbs, n_inst)
+        fut = ex.submit(in_request(self._stream_launch), pk, z_limbs, n_inst)
         ex.shutdown(wait=False)
         return fut
 

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..device import on_card
-from ..utils.profiling import span
+from ..utils.profiling import open_request, request, request_id, span
 
 # Stream-MSM window bits and accumulator lanes: the reference's values
 # (pcd_tpu/ops/msm_stream.py:117), kept as the starting point to measure
@@ -234,7 +234,10 @@ def stream_launch(pk, queries, h_curve, scalar_bits: int, z_limbs, device,
     """Build the stream tables of `queries` ((name, curve) pairs) and of
     h_query, then enqueue the queries' MSMs against z_limbs, one shared
     schedule (on `sched_stream`, see `schedule`), without waiting.
-    Returns {name: future}."""
+    Opens a profiling request unless one is held (utils/profiling.py): the
+    futures, and the h MSM dispatched after, carry it.  Returns {name:
+    future}."""
+    open_request()
     for nm, curve in tuple(queries) + (("h_query", h_curve),):
         stream_table(pk, nm, curve, scalar_bits, device)
     futs = {}
@@ -299,7 +302,10 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
     right only while every caller passes the same z).
 
     sched_stream: the stream `schedule` reads the scalars on (None: the
-    current one)."""
+    current one).
+
+    The future carries the thread's profiling request, which
+    `stream_collect` resumes."""
     sctx, table, _ = stream_table(pk, nm, curve, scalar_bits, device)
     qn = len(getattr(pk, nm))
     on_dev = isinstance(scal_limbs, torch.Tensor)
@@ -317,15 +323,18 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                              f"{offset + qn}) outside its "
                              f"{table.shape[0]} points")
         table = table[offset:offset + qn]
-    sched = None
-    key = None if sched_cache is None else schedule_key(sctx, sl)
+    sched = key = None
+    if sched_cache is not None:
+        with span("sched_digest"):
+            key = schedule_key(sctx, sl)
     if key is not None:
         sched = sched_cache.get(key)
     if sched is None:
         sched = schedule(sctx, sl, device, sched_stream)
         if key is not None:
             sched_cache[key] = sched
-    return (sctx, sched.act) + sctx.window_sums_async(table, sched)
+    return (sctx, sched.act) + sctx.window_sums_async(table, sched) + (
+        request_id(),)
 
 
 def schedule_key(sctx, scal_limbs):
@@ -352,7 +361,7 @@ def schedule(sctx, scal_limbs, device, stream=None):
     if SCHEDULER == "host":
         with span("schedule_host"):
             if on_dev:
-                with torch.cuda.stream(stream):
+                with torch.cuda.stream(stream), span("sched_fetch"):
                     scal_limbs = limbs_host(scal_limbs)
             return sctx.schedule_native(scal_limbs)
     if SCHEDULER == "device":
@@ -361,9 +370,12 @@ def schedule(sctx, scal_limbs, device, stream=None):
         dm = devsched_ctx(sctx.curve, sctx.scalar_bits, sctx.c, sctx.L)
         with span("schedule_device"):
             with torch.cuda.stream(stream):
-                sched = dm.schedule(scal_limbs.to(device).contiguous()
-                                    if on_dev else dm.upload(scal_limbs,
-                                                             device))
+                if on_dev:
+                    W = scal_limbs.to(device).contiguous()
+                else:
+                    with span("sched_upload"):
+                        W = dm.upload(scal_limbs, device)
+                sched = dm.schedule(W)
             if stream is not None:
                 cur = torch.cuda.current_stream(device)
                 cur.wait_stream(stream)
@@ -376,7 +388,11 @@ def schedule(sctx, scal_limbs, device, stream=None):
 
 def stream_collect(fut):
     """Wait for a dispatched stream MSM and Horner-combine on the host
-    over the windows its schedule covers."""
-    sctx, act, ws, ev = fut
-    return sctx.horner_host(sctx.collect(ws, ev), act)
+    over the windows its schedule covers, in the request of its
+    dispatch."""
+    sctx, act, ws, ev, rid = fut
+    with request(rid), span("stream_collect"):
+        wsn = sctx.collect(ws, ev)
+        with span("horner"):
+            return sctx.horner_host(wsn, act)
 

@@ -3,7 +3,8 @@ same text as their modules.  Each copy of `pcd_tpu/<path>` lives at
 `pcd_tpu_torch/<path>` and differs from it only by its mirror paragraph
 ("The port's copy of `pcd_tpu/<path>`; ...") and by the hunks listed in
 EDITED: the per-process temporaries of `pcd/ec_cycle.py` (its placeholder
-cache) and `native/__init__.py` (its build), and the docstrings of
+cache) and `native/__init__.py` (its build), the port's profiling of both
+(a step's request, the spans of the stream-MSM schedule), the docstrings of
 `fields/constants.py` and `fields/prime.py`, which name the reference by
 its name and not by a path, and the absolute imports of
 `parallel/farm.py`'s workers, which rebuild the pk from the port's
@@ -42,6 +43,8 @@ COPIES = (
 ) + tuple(f"{p}/__init__.py" for p in PACKAGES)
 EDITED = {
     "pcd/ec_cycle.py": [
+        (("from ..utils.profiling import request, span",),
+         "1dc4ca416d18c3d4"),
         (("        # the package name leads the key: the JAX package writes "
           "the same",
           "        # (scheme, curve, size) placeholders into this directory, "
@@ -51,14 +54,32 @@ EDITED = {
           'snark.cfg.name,',
           "               public_input_size)"), "ac6f96207468bdc3"),
         (('                tmp = f"{fname}.{os.getpid()}.tmp"   # one per '
-          'process',), "e3b836d380b0068f")],
+          'process',), "e3b836d380b0068f"),
+        (("    @request()",), "e3b0c44298fc1c14")],
     "native/__init__.py": [
+        (("from ..utils.profiling import span", ""), "e3b0c44298fc1c14"),
         (("    # one temporary per process: test workers that start "
           "together each",
           "    # build and atomically rename their own complete library",
           '    tmp = f"{so}.{os.getpid()}.tmp"'), "e3b0c44298fc1c14"),
         (('             "-o", tmp],',), "8d3c5a5215aa39f2"),
-        (("        os.replace(tmp, so)",), "d5849a0bbd373184")],
+        (("        os.replace(tmp, so)",), "d5849a0bbd373184"),
+        (('    with span("sched_fit"):',
+          "        T = lib.pcd_msm_schedule(n, c, nwin, L, B, 0, cw, "
+          "_u64p(limbs), nl,",
+          "                                 inf_p, nullp, nulli, nulli)"),
+         "a14cd089624ba41d"),
+        (('    with span("sched_alloc"):',
+          "        perm = np.zeros((nwin, T * L), dtype=np.uint32)",
+          "        loads = np.zeros((nwin, L), dtype=np.int32)",
+          "        bidx = np.zeros((nwin, B), dtype=np.int32)",
+          '    with span("sched_place"):',
+          "        rc = lib.pcd_msm_schedule(",
+          "            n, c, nwin, L, B, T, cw, _u64p(limbs), nl, inf_p,",
+          "            perm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),",
+          "            loads.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),",
+          "            bidx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))"),
+         "213c72eeef10fc6f")],
     "fields/constants.py": [
         (("`ark-ed-on-mnt4-298` (Cargo.toml:31-34) whose sources are NOT "
           "vendored with",
