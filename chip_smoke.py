@@ -40,33 +40,35 @@ status line:
      CUDA-event device time of every launch of the warm step, of the
      whole finish (StreamMSMCtx._finish), and of the warm step's finishes
      replayed through K4 and through finish_steps in turns; then six more
-     warm steps, the scheduler (msm_dispatch.SCHEDULER) in three adjacent
-     host/device pairs, alternating which runs first, each step with K1
-     and K4 exactly once per commitment MSM (each P1 kernel and the P2
-     kernel twice a prove under "device", never under "host"), the last
-     proof of each
-     verified; per scheduler the
-     medians and ranges of the step, stream_dispatch, stream_dispatch_h,
-     the MSM collect (groth16/msm) and the schedule spans, and the
-     verdict: "device" when its step is shorter in at least nine tenths
-     of the pairs and its median shorter than the host's by more than the
-     host steps' interquartile distance; then one untimed warm step under
+     warm steps, the scheduler (msm_dispatch.SCHEDULER) forced in three
+     adjacent host/device pairs, alternating which runs first, each step
+     with K1 and K4 exactly once per commitment MSM (each P1 kernel and
+     the P2 kernel twice a prove under "device", never under "host"),
+     the last proof of each verified; per scheduler the medians and
+     ranges of the step, stream_dispatch, stream_dispatch_h, the MSM
+     collect (groth16/msm) and the schedule spans (no verdict: the
+     default follows the MSM's device); then one untimed warm step under
      the device quotient (its set-up) and ten warm steps with the
      quotient tier (msm_dispatch.QUOTIENT) in five such pairs, K5, K6 and
      K7 launched under "device" only (K5 once a pass of hpoly's three
      transforms, K7 twice a field for Groth16 and four times for GM17:
      the quotient's scalings run in K5), with the same medians (and the
-     h_poly, matvec and hpoly spans) and the verdict by the same rule;
-     then one warm step under each quotient tier inside device_trace
-     (torch.profiler; chiprun_out/device_trace/), with the card's busy
-     and idle shares of the step, and one more under the device quotient
-     and the device scheduler, with each P1 and P2 kernel's launches and
-     kernel time in it;
+     h_poly, matvec and hpoly spans) and the verdict: "device" when its
+     step is shorter in at least nine tenths of the pairs and its median
+     shorter than the host's by more than the host steps' interquartile
+     distance; then one warm step under each quotient tier inside
+     device_trace (torch.profiler; chiprun_out/device_trace/), the
+     scheduler the default's, with the card's busy and idle shares of
+     the step and each P1 and P2 kernel's launches and kernel time in it;
   5  each kernel again on the inputs of its first launch in the warm step
      (K1 and K4: the a-query or b_g2 MSM), exactly against its plain
      version, with CUDA-event times, K4 beside finish_steps on the same
-     inputs: these are the numbers of the `kernels` line.  Runs after every chain of phases
-     4 and 6, on that chain's inputs, and cannot be chosen alone;
+     inputs: these are the numbers of the `kernels` line; and each P1
+     kernel and P2 on the inputs of their first launch at each scalar
+     count of the warm step (the provers' z and h, most with a partial
+     last P1 tile), exactly against their plain versions, P1 and P2
+     timed.  Runs after every chain of phases 4 and 6, on that chain's
+     inputs, and cannot be chosen alone;
   6  phases 4 and 5 for the real-cycle GM17 chain mnt4_gm17 and the
      mixed chains mnt4_mix_groth16_gm17 and mnt4_mix_gm17_groth16, each
      at full width; K1 exactly once per commitment MSM of either SNARK;
@@ -173,12 +175,12 @@ the chains, and phases 10 and 12 between phases 4 and 6.  K8's records come from
 phase 11; their `launches` are the setups' (phases 4, 6 and 7).  K2's and K3's records come from phase
 2; their `launches` sum their launches over the chains run (null when
 none ran).  The P1 and P2 kernels' records come from phase 9; their
-`launches` are those of phase 4's device-scheduled warm steps (phase 9's
-own when phase 4 did not run).  K5-K7's records come from phase 10; their `launches`
+`launches` sum their launches on the main paths (base case and warm
+step) of the chains run (phase 9's own when none ran).  K5-K7's records come from phase 10; their `launches`
 are those of a device-quotient warm step of their chain (mnt4_groth16's
 from phase 4, mnt4_gm17's from phase 6; null when it did not run).
-Phases 4, 6 and 7 set up under msm_dispatch.KEYGEN's default, and phases
-6 and 7 run SCHEDULER's and QUOTIENT's.
+Phases 4, 6 and 7 set up under msm_dispatch.KEYGEN's default, and
+their main paths run SCHEDULER's and QUOTIENT's.
 Any failure exits non-zero without the final line.  Nothing here imports
 JAX or the JAX package.
 """
@@ -1048,6 +1050,39 @@ def p1_exact(dm, W, what):
     return got
 
 
+def p1_kernels_exact(dm, W, what):
+    """Each P1 kernel on the scalars W, each on its predecessor's output,
+    exactly against its plain version on the same inputs (p1_scan's
+    starts and counts against scan_plain's, the scatter's order against
+    scatter_plain's), and the whole P1 against the plain P1.  Returns
+    (mags, signs, the tiles' histogram, starts, counts, the plain
+    magnitudes, the plain starts)."""
+    import torch
+
+    nwin = dm.sctx.nwin
+    mags, signs = dm.digits(W)
+    hist = dm.tile_hist(mags)
+    hist0 = hist.clone()                       # p1_scan works in place
+    starts, counts = dm.tile_scan(hist)
+    order = dm.scatter(mags, signs, starts, counts)
+    pm, ps = dm.digits_plain(W)
+    checks = {"p1_digits": (mags.int(), pm), "p1_hist": (
+        hist0, dm.hist_plain(mags))}
+    ws, wc = dm.scan_plain(hist0)
+    checks["p1_scan"] = (torch.cat([starts.view(nwin, -1), counts], 1),
+                         torch.cat([ws.view(nwin, -1), wc], 1))
+    checks["p1_scatter"] = (order, dm.scatter_plain(mags, signs, starts,
+                                                    counts))
+    if not torch.equal(signs, ps):
+        raise AssertionError(f"p1_digits on {what}: signs != the plain "
+                             f"version")
+    for k, (a, b) in checks.items():
+        if not torch.equal(a, b):
+            raise AssertionError(f"{k} on {what} != its plain version")
+    p1_exact(dm, W, what)
+    return mags, signs, hist0, starts, counts, pm, ws
+
+
 def p1_records(dm, W, dev):
     """Each P1 kernel on the dense scalars W: exact against its plain
     version on the same inputs, CUDA-event ms, plain ms (one call), bound
@@ -1069,24 +1104,8 @@ def p1_records(dm, W, dev):
     n, nw = W.shape
     K, nt = s.B + 2, -(-n // P1_TILE)
     nwin = s.nwin
-    mags, signs = dm.digits(W)
-    hist = dm.tile_hist(mags)
-    hist0 = hist.clone()
-    starts, counts = dm.tile_scan(hist)
-    order = dm.scatter(mags, signs, starts, counts)
-    pm, ps = dm.digits_plain(W)
-    checks = {"p1_digits": (mags.int(), pm), "p1_hist": (
-        hist0, dm.hist_plain(mags))}
-    ws, wc = dm.scan_plain(hist0)
-    checks["p1_scan"] = (torch.cat([starts.view(nwin, -1), counts], 1),
-                         torch.cat([ws.view(nwin, -1), wc], 1))
-    checks["p1_scatter"] = (order, dm.scatter_plain(mags, signs, starts,
-                                                    counts))
-    if not torch.equal(signs, ps):
-        raise AssertionError("p1_digits: signs != the plain version")
-    for k, (a, b) in checks.items():
-        if not torch.equal(a, b):
-            raise AssertionError(f"{k} != its plain version")
+    mags, signs, hist0, starts, counts, pm, ws = p1_kernels_exact(
+        dm, W, f"{n} scalars")
     scratch = hist0.clone()    # p1_scan works in place: its time on one
     # buffer, L2-warm as in P1 (the values it leaves are not checked)
     key = ((torch.arange(nwin, device=dev)[:, None] * nt
@@ -1140,13 +1159,12 @@ def p1_records(dm, W, dev):
     return recs, p1_ms, plain_p1, lib_ms, bound
 
 
-def p2_exact(dm, p1_out, what):
-    """P2 on P1's output: place (the P2 kernel) against its plain version
-    and against place_plain (the torch-ops law), element for element."""
+def p2_exact(dm, order, counts, act, T, what):
+    """P2 on P1's (order, counts) over the active windows act at T: place
+    (the P2 kernel) against its plain version and against place_plain
+    (the torch-ops law), element for element."""
     import torch
 
-    order, _, counts = p1_out
-    act, T, _ = dm._pick_shapes(counts.cpu().numpy())
     got = dm.place(order, counts, act, T)
     for nm, want in (("p2_place", dm.p2_place_plain(order, counts, act, T)),
                      ("place_plain", dm.place_plain(order, counts, act, T))):
@@ -1283,7 +1301,9 @@ def phase_devsched(results, dev="cuda", log_n=18, log_n2=16, phase=9):
                                      f"MSM != C++ Pippenger")
             W = dm.upload(limbs, dev)
             what = f"2^{log} {curve.name} {kind}"
-            p2_exact(dm, p1_exact(dm, W, what), what)
+            order, _, cnt = p1_exact(dm, W, what)
+            act, T, _ = dm._pick_shapes(cnt.cpu().numpy())
+            p2_exact(dm, order, cnt, act, T, what)
             sched = dm.schedule(W)
             if kind == "low-entropy" and list(sched.act) != [0, 5]:
                 raise AssertionError(f"low-entropy scalars: active windows "
@@ -1388,8 +1408,11 @@ class LaunchProbe:
     inputs (K3's accumulator, which it updates in place, as a copy), every
     finish keeps its StreamMSMCtx and inputs, and every call on the card
     gets CUDA events around it on the caller's current stream (the MSM
-    side stream in the prover's background thread).  The wrappers' launch
-    counters are untouched; leaving the `with` restores the wrappers."""
+    side stream in the prover's background thread).  It also wraps the
+    device scheduler's P1 (DevSchedMSM.p1) and P2 (DevSchedMSM.place):
+    the first call per (step, form, scalars) keeps a copy of its inputs.
+    The wrappers' launch counters are untouched; leaving the `with`
+    restores the wrappers."""
 
     WRAPPED = (("madd_accumulate", "madd_accumulate"),
                ("complete_add", "add"), ("madd", "madd"),
@@ -1401,6 +1424,8 @@ class LaunchProbe:
         self.last = {}       # the same for the latest call (not K3's)
         self.finishes = []   # (StreamMSMCtx, args) of every finish
         self.firsts = []     # the first of them per curve
+        self.sched = {}      # ("p1" or "place", form, scalars) ->
+                             # (DevSchedMSM, copied args)
         self.events = []     # ((kernel or "finish", curve name), start, end,
                              #  host seconds from start's record to end's)
 
@@ -1419,11 +1444,14 @@ class LaunchProbe:
         return out
 
     def __enter__(self):
+        import torch
+
         from pcd_tpu_torch.ops.ec import ECCtx
         from pcd_tpu_torch.ops.fft_tensor import FFTTensorCtx
         from pcd_tpu_torch.ops.field import FieldCtx
         from pcd_tpu_torch.ops.matvec_tensor import SparseMatVec
         from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
+        from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
 
         self._orig = {attr: getattr(ECCtx, attr) for _, attr in self.WRAPPED}
         self._finish = StreamMSMCtx._finish
@@ -1454,6 +1482,24 @@ class LaunchProbe:
 
         for kernel, attr in self.WRAPPED:
             setattr(ECCtx, attr, wrap(kernel, self._orig[attr]))
+        self._sched = {attr: getattr(DevSchedMSM, attr)
+                       for attr in ("p1", "place")}
+
+        def keep(attr, fn):
+            def probed(dm, *args):
+                if self.on:
+                    # p1(W): W (n, words); place(order, ...): (nwin, n)
+                    n = args[0].shape[0 if attr == "p1" else 1]
+                    key = (attr, dm.form, n)
+                    if key not in self.sched:
+                        self.sched[key] = (dm, tuple(
+                            a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args))
+                return fn(dm, *args)
+            return probed
+
+        for attr, fn in self._sched.items():
+            setattr(DevSchedMSM, attr, keep(attr, fn))
         # the device quotient's K5-K7: CUDA events only
         self._quot = [(FFTTensorCtx, "ntt_pass", "ntt_pass",
                        lambda c, a: (c.f.name, a[0])),
@@ -1481,9 +1527,12 @@ class LaunchProbe:
     def __exit__(self, *exc):
         from pcd_tpu_torch.ops.ec import ECCtx
         from pcd_tpu_torch.ops.msm_stream import StreamMSMCtx
+        from pcd_tpu_torch.ops.msm_stream_dev import DevSchedMSM
 
         for attr, fn in self._orig.items():
             setattr(ECCtx, attr, fn)
+        for attr, fn in self._sched.items():
+            setattr(DevSchedMSM, attr, fn)
         StreamMSMCtx._finish = self._finish
         for cls, attr, fn in self._quot_orig:
             setattr(cls, attr, fn)
@@ -1588,30 +1637,31 @@ def pipelined_chain(pcd, pk, vk, pred, forms, counter, dev, phase):
     if pcd.verify(vk, pred, one, proofs[1]):
         raise AssertionError("pipelined chain: negative check accepted an "
                              "old message")
-    check_once_per_msm(counts, forms, "the pipelined chain", proves=2)
+    check_once_per_msm(counts, forms, "the pipelined chain", dev,
+                       proves=2)
     say(phase, f"pipelined chain (PipelinedChainProver, help stage on a "
                f"worker thread): base case and step 2 in {secs:.1f}s, both "
                f"verify, negative check rejects, K1 and K4 once per "
                f"commitment MSM of its four proves")
 
 
-def check_once_per_msm(counts, forms, what, proves=1):
+def check_once_per_msm(counts, forms, what, dev, proves=1):
     """K1 and K4 of every form exactly once per commitment MSM of
     `proves` proves of each side, K2 and K3 never; each P1 kernel once per
-    schedule (P1_PER_PROVE a prove of each side) under the device
-    scheduler, never under the host one; each P2 kernel as each P1
-    kernel (every schedule of a prove has an active window)."""
+    schedule (P1_PER_PROVE a prove of each side) where the scheduler
+    msm_dispatch picks for `dev` is the device's, never under the host
+    one; each P2 kernel as each P1 kernel (every schedule of a prove has
+    an active window)."""
     from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
 
-    want = (proves * P1_PER_PROVE * len(forms) // 2
-            if msm_dispatch.SCHEDULER == "device" else 0)
+    tier = msm_dispatch.scheduler_tier(dev)
+    want = proves * P1_PER_PROVE * len(forms) // 2 if tier == "device" else 0
     for k in SCHED_KERNELS:
         got = sum(v for (kk, _), v in counts.items() if kk == k)
         if got != want:
             raise AssertionError(f"{what}: {k} launched {got} times under "
-                                 f"the {msm_dispatch.SCHEDULER!r} scheduler,"
-                                 f" expected {want}")
+                                 f"the {tier!r} scheduler, expected {want}")
     for f, grp, kind in forms:
         want = proves * K1_PER_PROVE[kind][grp]
         for k in ("madd_accumulate", "bucket_finish"):
@@ -1661,23 +1711,22 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     scheduler and never under the host one; K5, K6 and K7 under the
     device quotient only, K5 and K7 as check_quotient_launches says) and
     its spans; the last proof of each setting
-    verified.  The verdict: "device" when its step is shorter in at
-    least nine tenths of the adjacent pairs and its median shorter than
-    the host's by more than the host steps' interquartile distance.
-    Returns ({setting: {metric: [median, min, max] s}}, {P1 or P2 kernel:
-    its launches in all}, the launch counts of the first "device" step)."""
+    verified.  For QUOTIENT, the verdict: "device" when its step is
+    shorter in at least nine tenths of the adjacent pairs and its median
+    shorter than the host's by more than the host steps' interquartile
+    distance (SCHEDULER follows the MSM's device and has none).
+    Returns ({setting: {metric: [median, min, max] s}}, the launch counts
+    of the first device-quotient step)."""
     import statistics
 
     from pcd_tpu_torch.ops import ec
-    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
     from pcd_tpu_torch.snark import msm_dispatch
     from pcd_tpu_torch.utils import profiling
 
     F = pcd.ic.main_field
     one, two = F.from_int(1), F.from_int(2)
     default = getattr(msm_dispatch, knob)
-    runs, last = {}, {}
-    p1_all, dev_counts = dict.fromkeys(SCHED_KERNELS, 0), None
+    runs, last, dev_counts = {}, {}, None
     profiling.enable()
     try:
         for val in turns:
@@ -1690,9 +1739,7 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
             wall = time.perf_counter() - t0
             got = counter()                    # this warm step ended
             what = f"warm step, {knob} {val!r}"
-            check_once_per_msm(got, forms, what)
-            for k in p1_all:
-                p1_all[k] += sum(v for (kk, _), v in got.items() if kk == k)
+            check_once_per_msm(got, forms, what, dev)
             quot = {k: sum(v for (kk, _), v in got.items() if kk == k)
                     for k in QUOTIENT_KERNELS}
             if msm_dispatch.QUOTIENT == "device":
@@ -1730,7 +1777,7 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
                      min(r[m] for r in recs), max(r[m] for r in recs)]
                  for m in recs[0]} for val, recs in runs.items()}
     verdict = None
-    if set(runs) == {"host", "device"}:
+    if knob == "QUOTIENT" and set(runs) == {"host", "device"}:
         steps = {val: [r["step"] for r in recs] for val, recs in runs.items()}
         it = {val: iter(v) for val, v in steps.items()}
         order = [(val, next(it[val])) for val in turns]
@@ -1755,7 +1802,7 @@ def knob_turns(knob, pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     if verdict is not None and verdict != default:
         say(phase, f"note: the verdict {verdict!r} is not "
                    f"msm_dispatch.{knob}'s default {default!r}")
-    return out, p1_all, dev_counts
+    return out, dev_counts
 
 
 def card_busy(trace_path, wall_s):
@@ -1813,12 +1860,11 @@ def sched_kernel_ms(trace_path):
 
 
 def traced_steps(pcd, pk, pred, proof_1, rng, dev, phase):
-    """One warm step under each quotient tier, and one more under the
-    device quotient and the device scheduler ("device_sched"), inside
-    device_trace (a torch.profiler capture, written under
-    chiprun_out/device_trace/ and gzipped): the card's busy and idle
-    shares of each step, and the device-scheduled step's P1 and P2
-    kernels' launches and time."""
+    """One warm step under each quotient tier, the scheduler as
+    msm_dispatch picks it for `dev`, inside device_trace (a
+    torch.profiler capture, written under chiprun_out/device_trace/ and
+    gzipped): the card's busy and idle shares of each step, and where
+    the device schedules, the P1 and P2 kernels' launches and time."""
     import gzip
     import shutil
 
@@ -1827,13 +1873,11 @@ def traced_steps(pcd, pk, pred, proof_1, rng, dev, phase):
 
     F = pcd.ic.main_field
     one, two = F.from_int(1), F.from_int(2)
-    default = msm_dispatch.QUOTIENT, msm_dispatch.SCHEDULER
+    default = msm_dispatch.QUOTIENT
     out = {}
     try:
-        for tier, quot, sched in (("host", "host", "host"),
-                                  ("device", "device", "host"),
-                                  ("device_sched", "device", "device")):
-            msm_dispatch.QUOTIENT, msm_dispatch.SCHEDULER = quot, sched
+        for tier in ("host", "device"):
+            msm_dispatch.QUOTIENT = tier
             logdir = os.path.join(HERE, "chiprun_out", "device_trace", tier)
             sync(dev)
             with device_trace(logdir):
@@ -1843,18 +1887,17 @@ def traced_steps(pcd, pk, pred, proof_1, rng, dev, phase):
                 wall = time.perf_counter() - t0
             path = os.path.join(logdir, "trace.json")
             out[tier] = dict(card_busy(path, wall), step_s=wall)
-            if sched == "device":
+            if msm_dispatch.scheduler_tier(dev) == "device":
                 out[tier]["sched_kernels"] = sched_kernel_ms(path)
             with open(path, "rb") as src, gzip.open(path + ".gz",
                                                      "wb") as dst:
                 shutil.copyfileobj(src, dst)
             os.remove(path)
     finally:
-        msm_dispatch.QUOTIENT, msm_dispatch.SCHEDULER = default
+        msm_dispatch.QUOTIENT = default
     for tier, rec in out.items():
-        what = {"host": "host quotient", "device": "device quotient",
-                "device_sched": "device quotient and scheduler"}[tier]
-        say(phase, f"device_trace of a warm step, {what}: "
+        say(phase, f"device_trace of a warm step, {tier} quotient, "
+                   f"{msm_dispatch.scheduler_tier(dev)} scheduler: "
                    + json.dumps({k: (round(v, 4) if isinstance(v, float)
                                      else v) for k, v in rec.items()}))
     return out
@@ -1865,8 +1908,8 @@ def quotient_step(pcd, pk, vk, pred, proof_1, rng, forms, counter, dev,
     """One more warm step under QUOTIENT = "device": K1 and K4 once per
     commitment MSM, K5, K6 and K7 launched, and the proof verifies.
     Returns the step's launch counts."""
-    _, _, counts = knob_turns("QUOTIENT", pcd, pk, vk, pred, proof_1, rng,
-                              forms, counter, dev, phase, ("device",))
+    _, counts = knob_turns("QUOTIENT", pcd, pk, vk, pred, proof_1, rng,
+                           forms, counter, dev, phase, ("device",))
     return counts
 
 
@@ -1990,7 +2033,7 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
              for grp, c in (("g1", cfg.g1), ("g2", cfg.g2))]
     missing = [f"{k}[{f}]" for k in ("madd_accumulate", "bucket_finish")
                for f, _, _ in forms if counts.get((k, f), 0) <= 0]
-    if msm_dispatch.SCHEDULER == "device":       # P1, P2 on the main path
+    if msm_dispatch.scheduler_tier(dev) == "device":   # P1, P2 on the path
         missing += [k for k in SCHED_KERNELS
                     if not any(kk == k for kk, _ in counts)]
     if missing:
@@ -1998,8 +2041,8 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
                              + ", ".join(missing))
     # every commitment MSM of both proves ran K1 and K4 once: none went to
     # the host; K2 no longer runs on the path
-    check_once_per_msm(base_counts, forms, "the base case")
-    check_once_per_msm(step2, forms, "the warm step")
+    check_once_per_msm(base_counts, forms, "the base case", dev)
+    check_once_per_msm(step2, forms, "the warm step", dev)
     took = {"sched": None, "trace": None, "chain": (pcd, pk),
             "keygen": keygen, "step": (vk, pred, proof_1)}
     if turns:
@@ -2015,7 +2058,7 @@ def phase_chain(name="mnt4_groth16", phase=4, dev=None, turns=False):
             took["quot"] = knob_turns("QUOTIENT", pcd, pk, vk, pred,
                                       proof_1, rng, forms, counter, dev,
                                       phase, QUOTIENT_TURNS)
-        took["quot_counts"] = took["quot"][2]
+        took["quot_counts"] = took["quot"][1]
         took["captured"] = qp.calls
         if dev.type == "cuda":
             took["trace"] = traced_steps(pcd, pk, pred, proof_1, rng, dev,
@@ -2111,6 +2154,37 @@ def phase_path(results, probe, counts, name="mnt4_groth16", phase=5,
                    f"{ms:.3f} ms, bound "
                    f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), plain "
                    f"{plain_ms:.0f} ms")
+    sched_path(probe, tag, phase, which)
+
+
+def sched_path(probe, tag, phase, which):
+    """P1's four kernels and P2 on the inputs of their first launch at
+    each scalar count of the probe's step (a partial last P1 tile where
+    the count is no multiple of it), each exactly against its plain
+    version, P1 and P2 timed with CUDA events as launched."""
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_TILE
+
+    for (attr, form, n), (dm, args) in sorted(probe.sched.items()):
+        dev = args[0].device
+        sync(dev)                  # the copies were made on a side stream
+        if attr == "p1":
+            W, = args
+            nt = -(-n // P1_TILE)
+            what = (f"{n} scalars, {nt} tile{'s' * (nt > 1)}, the last "
+                    f"of {n - (nt - 1) * P1_TILE}")
+            p1_kernels_exact(dm, W, f"{which}{tag} ({what})")
+            ms = device_ms(lambda: dm.p1(W), 5, dev)
+            say(phase, f"P1[{form}]{tag} on {which} ({what}): each kernel "
+                       f"and P1 exact against their plain versions; P1 "
+                       f"{ms:.3f} ms as launched")
+            continue
+        order, counts, act, T = args
+        what = f"{n} scalars, {len(act)} windows, T = {T}"
+        p2_exact(dm, order, counts, act, T, f"{which}{tag} ({what})")
+        ms = device_ms(lambda: dm.place(order, counts, act, T), 5, dev)
+        say(phase, f"p2_place[{form}]{tag} on {which} ({what}): exact "
+                   f"against its plain version and place_plain; "
+                   f"{ms:.3f} ms as launched")
 
 
 class QuotientProbe:
@@ -2684,7 +2758,8 @@ def phase_sharded(card, took=None, dev=None, phase=12):
         raise AssertionError(f"a quotient ran unsharded: {dctx.unsharded}")
     want, splits = sharded_launches(dctx, pcd, pk)
     for tag in ("sharded set-up", "sharded"):
-        check_once_per_msm(counts[tag], forms, f"the {tag} warm step")
+        check_once_per_msm(counts[tag], forms, f"the {tag} warm step",
+                           dev)
     # the set-up step also builds the n1 and n2 root tables (K7)
     got = {k: v for k, v in counts["sharded"].items() if k in want}
     if got != want:
@@ -2932,11 +3007,12 @@ def marlin_turns(snark, pk, circ, rng, dev, phase):
           f"{len(pairs)} pairs")
 
 
-def marlin_stage(what, calls, before, after, form, stream_min, most,
+def marlin_stage(what, calls, before, after, form, stream_min, most, dev,
                  ffts=None):
     """Hold one stage's launches to its KZG MSMs: K1 and K4 of `form` once
-    per stream MSM (and each P1 kernel under the device scheduler), each
-    of at least stream_min scalars, the host MSMs all below it; and, with
+    per stream MSM (and each P1 and P2 kernel where msm_dispatch schedules
+    on `dev`, the MSMs' device), each of at least stream_min scalars, the
+    host MSMs all below it; and, with
     ffts = (Fr, sizes of the AHP's device transforms, device), K5 once a
     pass and K7 twice (to and from Montgomery form) for each of those
     transforms, besides the set-up launches of their contexts (the
@@ -2973,11 +3049,12 @@ def marlin_stage(what, calls, before, after, form, stream_min, most,
                                  f"{want}")
     p1 = {k: sum(delta.pop(kk) for kk in list(delta) if kk[0] == k)
           for k in SCHED_KERNELS}
-    each = len(streamed) if msm_dispatch.SCHEDULER == "device" else 0
+    tier = msm_dispatch.scheduler_tier(dev)
+    each = len(streamed) if tier == "device" else 0
     if p1 != dict.fromkeys(SCHED_KERNELS, each):
         raise AssertionError(f"{what}: P1 and P2 launches {p1} for "
                              f"{len(streamed)} stream MSMs under the "
-                             f"{msm_dispatch.SCHEDULER!r} scheduler")
+                             f"{tier!r} scheduler")
     want = {(k, form): len(streamed) for k in ("madd_accumulate",
                                                 "bucket_finish")
             if streamed}
@@ -3051,7 +3128,7 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
             ffts["index"], setup["index"] = fp.take()
             stages["index"] = marlin_stage(
                 "index", kp.take(), before, counter(), form, stream_min, 9,
-                (Fr, ffts["index"], dev_, setup["index"]))
+                dev_, (Fr, ffts["index"], dev_, setup["index"]))
             before = counter()
             t0 = time.perf_counter()
             proof_1 = snark.prove(pk, circ, rng)
@@ -3060,8 +3137,8 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
             ffts["prove_cold"], setup["prove_cold"] = fp.take()
             stages["prove_cold"] = marlin_stage(
                 "cold prove", kp.take(), before, counter(), form,
-                stream_min, 20, (Fr, ffts["prove_cold"], dev_,
-                                 setup["prove_cold"]))
+                stream_min, 20, dev_, (Fr, ffts["prove_cold"], dev_,
+                                       setup["prove_cold"]))
             spans_cold = profiling.totals()
             profiling.reset()
             fp.check = False                       # the warm prove: timed
@@ -3080,7 +3157,7 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
                                      f"a transform context")
             stages["prove_warm"] = marlin_stage(
                 "warm prove", kp.take(), {}, warm, form, stream_min, 20,
-                (Fr, ffts["prove_warm"], dev_, {}))
+                dev_, (Fr, ffts["prove_warm"], dev_, {}))
             got = tuple(len(ffts[k]) for k in ("index", "prove_cold"))
             if got != want or len(ffts["prove_warm"]) != want[1]:
                 raise AssertionError(f"Marlin {side}: device transforms "
@@ -3100,7 +3177,7 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
             before = counter()
             comm = snark.kzg.commit(srs, coeffs, degree_bound=bound)
             marlin_stage("shadow commit", kp.take(), before, counter(),
-                         form, stream_min, 2)
+                         form, stream_min, 2, dev_)
         table = host_query(srs, "powers_g1")
         off = D - bound
         if comm.c != msm_any(subrange(table, 0, n_s), coeffs) \
@@ -3180,10 +3257,10 @@ def phase_marlin(results, log_m=MARLIN_LOG_M, dev=None, phase=7):
 class ProbeInputs:
     """Kernel inputs for phase_path, as a LaunchProbe holds them: `first`
     {(kernel, curve name): (ECCtx, args)} and `firsts` [(StreamMSMCtx,
-    finish args)]."""
+    finish args)]; no schedule's (`sched` empty)."""
 
     def __init__(self, first, firsts):
-        self.first, self.firsts = first, firsts
+        self.first, self.firsts, self.sched = first, firsts, {}
 
 
 def phase_marlin_chain(dev=None, phase=8):
@@ -3263,6 +3340,7 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from pcd_tpu_torch.ops.msm_stream_dev import SCHED_KERNELS
     t_start = time.perf_counter()
     results = []
 
@@ -3302,12 +3380,8 @@ def main(argv):
             quot_counts[name] = took["quot_counts"]
             for f, v in took["keygen"].items():
                 keygens[f] = keygens.get(f, 0) + v
-            if took["sched"] is not None:   # P1 and P2 on the path
+            if ph == 4:
                 took4 = took
-                for rec in results:
-                    kernel = rec["name"].split("[")[0]
-                    if kernel in took["sched"][1]:
-                        rec["launches"] = took["sched"][1][kernel]
             phase_path(results, probe, counts, name, 5 if ph == 4 else ph)
             say(ph, f"{name}: {time.perf_counter() - t0:.1f}s with its "
                     f"first-launch kernel checks")
@@ -3326,6 +3400,12 @@ def main(argv):
     ran = chain_counts or 7 in phases
     for form, rec in k8.items():   # K8's launches in the setups run
         rec["launches"] = keygens.get(form, 0) if ran else None
+    for rec in results:            # P1's, P2's on the chains' main paths
+        kernel = rec["name"].split("[")[0]
+        if kernel in SCHED_KERNELS and chain_counts:
+            form = rec["name"][len(kernel) + 1:-1]
+            rec["launches"] = sum(c.get((kernel, form), 0)
+                                  for c in chain_counts)
     for rec in k3:                 # K2's, K3's launches on the chains run
         kernel, form = rec["name"][:-1].split("[")
         rec["launches"] = (sum(c.get((kernel, form), 0)

@@ -3,8 +3,9 @@ ShardedStreamMSM (`pcd_tpu/parallel/stream_dist.py`).
 
 DP over points.  An MSM is linear in its point set, so each rank holds a
 shard of the table and schedules only its own scalars (under
-msm_dispatch.SCHEDULER, host or device); it runs K1 and K4 once on its
-shard, exactly the single-card pipeline (ops/msm_stream.py), and its
+msm_dispatch.SCHEDULER, by default on the device of the rank's table:
+P1 and P2 on a card, the C++ schedule on the CPU); it runs K1 and K4 once
+on its shard, exactly the single-card pipeline (ops/msm_stream.py), and its
 (nwin, 3, d, 10) window sums are all-gathered.  A device schedule covers
 only its active windows, which differ between ranks, so each rank pads
 its sums to all nwin windows with identity rows before the gather; a
@@ -118,8 +119,10 @@ class ShardedStreamMSM:
     def window_sums_async(self, table, limbs, sched_stream=None,
                           sched_cache=None) -> ShardFuture:
         """Schedule this rank's scalars (as many rows as its table, host
-        u64 or device int32 limbs) under msm_dispatch.SCHEDULER and
-        enqueue K1 and K4 on the current stream, without waiting.
+        u64 or device int32 limbs) under msm_dispatch.SCHEDULER (by
+        default on the table's device when it is a card, else on the
+        host) and enqueue K1 and K4 on the current stream, without
+        waiting.
         sched_cache: a dict shared by the MSMs of one scalar vector (the
         prover's a/b1/b2/l), keyed by the vector's digest."""
         from ..snark.msm_dispatch import schedule, schedule_key

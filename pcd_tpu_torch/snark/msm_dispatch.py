@@ -18,8 +18,14 @@ threaded msm_schedule, or "device", DevSchedMSM (ops/msm_stream_dev.py),
 where only the scalar limbs cross and the digits, sort and placement run
 on the device.  Both schedules feed the same K1 -> K4 -> Horner pipeline;
 it replaces the reference's PCD_TPU_DEVSCHED environment variable.  The
-default stays "host": on the H100 the device scheduler's warm step did
-not pass PERF.md's rule in each of two chip calls (PERF.md section 6).
+default, "auto", follows the device the MSM runs on: "device" on a CUDA
+device, "host" anywhere else.  On the card the C++ schedule kept the
+H100 idle about 80% of gm17_msm's batch, while P1 and P2 take well under
+a millisecond and only the scalars cross (PERF.md section 6); on the CPU
+the device schedule would run its plain torch versions, slower than the
+C++ tier.  "host" and "device" force either path; schedule() counts the
+schedules each path makes (counters sched_host and sched_device of
+utils/profiling).
 
 QUOTIENT picks who computes the Groth16 and GM17 provers' quotient h =
 (A B - C)/Z_H: "host", the C++ tier's CSR matvec and fused `hpoly`, or
@@ -51,20 +57,20 @@ import numpy as np
 import torch
 
 from ..device import on_card
-from ..utils.profiling import open_request, request, request_id, span
+from ..utils.profiling import (count, open_request, request,
+                               request_id, span)
 
 # Stream-MSM window bits and accumulator lanes: the reference's values
 # (pcd_tpu/ops/msm_stream.py:117), kept as the starting point to measure
 # again on the card (PERF.md).  The per-window sums do not depend on L.
 WINDOW_BITS = 12
 LANES = 8192
-# Who schedules the stream MSMs, "host" or "device" (see the module
-# docstring).  "host" by the rule in PERF.md: "device" becomes the
-# default only when its Groth16 warm step is shorter in nine tenths of
-# phase 4's pairs, its median by more than the host steps' interquartile
-# distance, in each of two chip calls on one tree; on the H100 it was not
-# (PERF.md section 6).
-SCHEDULER = "host"
+# Who schedules the stream MSMs: "auto" follows the MSM's device (the
+# device schedule on a card, the C++ one elsewhere), "host" and "device"
+# force either (see the module docstring).  "auto" since the gm17_msm
+# benchmark, where the schedule is the batch's critical path and the C++
+# schedule left the H100 idle about 80% of the time (PERF.md section 6).
+SCHEDULER = "auto"
 # Who computes the provers' quotient, "host" or "device" (see the module
 # docstring).  "device" by the rule in PERF.md (PR 6): on the H100 the
 # Groth16 warm step under the device quotient was shorter in every pair,
@@ -87,6 +93,17 @@ def quotient_tier() -> str:
         return QUOTIENT
     raise ValueError(f"msm_dispatch.QUOTIENT: 'host' or 'device', not "
                      f"{QUOTIENT!r}")
+
+
+def scheduler_tier(device) -> str:
+    """The scheduler SCHEDULER picks for an MSM on `device`: "device" or
+    "host"; "auto" is "device" on a card.  An unknown value raises."""
+    if SCHEDULER == "auto":
+        return "device" if on_card(device) else "host"
+    if SCHEDULER in ("host", "device"):
+        return SCHEDULER
+    raise ValueError(f"msm_dispatch.SCHEDULER: 'auto', 'host' or 'device', "
+                     f"not {SCHEDULER!r}")
 
 
 def keygen_tier() -> str:
@@ -348,42 +365,42 @@ def schedule_key(sctx, scal_limbs):
 
 def schedule(sctx, scal_limbs, device, stream=None):
     """The schedule of (n, NL) u64 limb scalars (or (n, 10) int32 limbs on
-    the device) by SCHEDULER: the C++ tier's StreamSchedule, or a
-    DevSchedule computed on `device`.  The scalars are read on `stream`
-    (None: the current stream): under "host" the fetch of device limbs,
-    under "device" the upload, P1, its one histogram fetch and the
+    the device) by `scheduler_tier(device)`: the C++ tier's StreamSchedule,
+    or a DevSchedule computed on `device`; counter sched_host or
+    sched_device counts it.  The scalars are read on `stream` (None: the
+    current stream): on the host path the fetch of device limbs, on the
+    device path the upload, P1, its one histogram fetch and the
     placement; the current stream then waits for the placement through an
     event, and the placement's tensors stay reserved for it.  Either
     raises on failure; neither falls back."""
     from ..ops.field import limbs_host
 
     on_dev = isinstance(scal_limbs, torch.Tensor)
-    if SCHEDULER == "host":
+    tier = scheduler_tier(device)
+    count("sched_" + tier, 1)
+    if tier == "host":
         with span("schedule_host"):
             if on_dev:
                 with torch.cuda.stream(stream), span("sched_fetch"):
                     scal_limbs = limbs_host(scal_limbs)
             return sctx.schedule_native(scal_limbs)
-    if SCHEDULER == "device":
-        from ..ops.msm_stream_dev import devsched_ctx
+    from ..ops.msm_stream_dev import devsched_ctx
 
-        dm = devsched_ctx(sctx.curve, sctx.scalar_bits, sctx.c, sctx.L)
-        with span("schedule_device"):
-            with torch.cuda.stream(stream):
-                if on_dev:
-                    W = scal_limbs.to(device).contiguous()
-                else:
-                    with span("sched_upload"):
-                        W = dm.upload(scal_limbs, device)
-                sched = dm.schedule(W)
-            if stream is not None:
-                cur = torch.cuda.current_stream(device)
-                cur.wait_stream(stream)
-                for t in sched.tensors or ():
-                    t.record_stream(cur)
-            return sched
-    raise ValueError(f"msm_dispatch.SCHEDULER: 'host' or 'device', not "
-                     f"{SCHEDULER!r}")
+    dm = devsched_ctx(sctx.curve, sctx.scalar_bits, sctx.c, sctx.L)
+    with span("schedule_device"):
+        with torch.cuda.stream(stream):
+            if on_dev:
+                W = scal_limbs.to(device).contiguous()
+            else:
+                with span("sched_upload"):
+                    W = dm.upload(scal_limbs, device)
+            sched = dm.schedule(W)
+        if stream is not None:
+            cur = torch.cuda.current_stream(device)
+            cur.wait_stream(stream)
+            for t in sched.tensors or ():
+                t.record_stream(cur)
+        return sched
 
 
 def stream_collect(fut):

@@ -570,6 +570,58 @@ def test_devsched_msm_on_card(form, cuda_device):
     assert len(sched.act) == 2
 
 
+@pytest.mark.cuda
+def test_default_scheduler_on_card(cuda_device, monkeypatch):
+    """Under the default SCHEDULER a stream MSM over a card's table is
+    scheduled on the card (a DevSchedule), here over three P1 tiles and
+    five scalars more at the chains' c = 12 and 8,192 lanes: two queries
+    over one z (MNT4 G1 and G2) through a shared sched_cache count one
+    sched_device and no sched_host, and their points equal the
+    forced-"host" MSMs' and the C++ Pippenger's."""
+    from types import SimpleNamespace
+
+    from pcd_tpu_torch.ops.msm_stream import StreamSchedule
+    from pcd_tpu_torch.ops.msm_stream_dev import P1_TILE, DevSchedule
+    from pcd_tpu_torch.snark import msm_dispatch
+    from pcd_tpu_torch.utils import profiling
+
+    assert msm_dispatch.SCHEDULER == "auto"
+    n = 3 * P1_TILE + 5
+    cfg, g1, pts1, *_ = _table(("mnt_cycle", "main", "g1"), n, 19)
+    _, g2, pts2, *_ = _table(("mnt_cycle", "main", "g2"), n, 20)
+    pk = SimpleNamespace(q1=pts1, q2=pts2)
+    rng = np.random.default_rng(21)
+    r = cfg.Fr.MODULUS
+    scalars = [int.from_bytes(rng.bytes(40), "little") % r
+               for _ in range(n)]
+    limbs = StreamMSMCtx.limb_rows(scalars, 40)
+
+    def run():
+        cache = {}
+        futs = [msm_dispatch.stream_msm_async(
+            pk, nm, curve, cfg.Fr.BITS, limbs, cuda_device,
+            sched_cache=cache) for nm, curve in (("q1", g1), ("q2", g2))]
+        return [msm_dispatch.stream_collect(f) for f in futs], cache
+
+    profiling.reset()
+    profiling.enable()
+    try:
+        got, cache = run()
+        counts = profiling.counters()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert counts.get("sched_device") == 1 and "sched_host" not in counts
+    (sched,) = cache.values()
+    assert isinstance(sched, DevSchedule)
+    monkeypatch.setattr(msm_dispatch, "SCHEDULER", "host")
+    want, cache = run()
+    (sched,) = cache.values()
+    assert isinstance(sched, StreamSchedule)
+    assert got == want
+    assert got == [host_msm(pts1, scalars), host_msm(pts2, scalars)]
+
+
 QFIELDS = [("toy_cycle", "main"), ("mnt_cycle", "main"), ("mnt_cycle", "help")]
 QIDS = ["-".join(f) for f in QFIELDS]
 

@@ -329,3 +329,64 @@ def test_unknown_scheduler_raises(toy, monkeypatch):
     monkeypatch.setattr(msm_dispatch, "SCHEDULER", "gpu")
     with pytest.raises(ValueError, match="SCHEDULER"):
         msm_dispatch.schedule(pc, _limbs(pc, [1, 2]), CPU)
+
+
+@pytest.mark.parametrize("scheduler, path", [("auto", "host"),
+                                             ("host", "host"),
+                                             ("device", "device")],
+                         ids=["default", "host", "device"])
+def test_scheduler_path_on_cpu(toy, scheduler, path, monkeypatch):
+    """Who schedules a stream MSM over a CPU table: the C++ tier under the
+    default SCHEDULER ("auto") and under "host", the plain P1 and P2 under
+    "device".  Two queries over one z (G1 and G2) through a shared
+    sched_cache make one schedule: span schedule_<path> and counter
+    sched_<path> once, the other path's never; both MSMs equal the host
+    oracle."""
+    from types import SimpleNamespace
+
+    from pcd_tpu_torch.ops.msm_stream import StreamSchedule
+    from pcd_tpu_torch.ops.msm_stream_dev import DevSchedule
+    from pcd_tpu_torch.utils import profiling
+
+    if scheduler != "auto":
+        monkeypatch.setattr(msm_dispatch, "SCHEDULER", scheduler)
+    assert msm_dispatch.SCHEDULER == scheduler      # "auto": the default
+    assert msm_dispatch.scheduler_tier(CPU) == path
+    monkeypatch.setattr(msm_dispatch, "WINDOW_BITS", 6)
+    monkeypatch.setattr(msm_dispatch, "LANES", 128)
+    _, port = toy
+    n, bits = 61, port.Fr.BITS
+    pk = SimpleNamespace(q1=_points(port.g1_gen, n),
+                         q2=[port.g2_gen * (i + 2) for i in range(n)])
+    pk.q1[4] = port.g1.infinity()
+    scalars = _scalars(port.g1.order, n, 5)
+    scalars[0] = 0
+    limbs = StreamMSMCtx.limb_rows(scalars, (bits + 63) // 64 * 8)
+    cache = {}
+    tec.reset_launch_counts()
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = [msm_dispatch.stream_collect(msm_dispatch.stream_msm_async(
+            pk, nm, curve, bits, limbs, CPU, sched_cache=cache))
+            for nm, curve in (("q1", port.g1), ("q2", port.g2))]
+        counts, spans = profiling.counters(), profiling.totals()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    other = "device" if path == "host" else "host"
+    assert counts.get("sched_" + path) == 1 and "sched_" + other not in counts
+    opened = {}
+    for k, (_, times) in spans.items():
+        leaf = k.rsplit("/", 1)[-1]
+        opened[leaf] = opened.get(leaf, 0) + times
+    assert opened.get("schedule_" + path) == 1
+    assert "schedule_" + other not in opened
+    (sched,) = cache.values()
+    assert isinstance(sched, DevSchedule if path == "device"
+                      else StreamSchedule)
+    plain = tec.plain_counts()
+    for k in SCHED_KERNELS:
+        assert plain.get((k, f"{bits}-bit c=6"), 0) == (path == "device")
+    assert got == [_host(pk.q1, scalars, port.g1),
+                   _host(pk.q2, scalars, port.g2)]

@@ -229,8 +229,11 @@ def test_request_runs_from_launch_to_collect(toy_msm):
 
 
 def test_h2d_bytes_is_the_schedules_bytes(toy_msm):
-    # a batch uploads z's shared schedule once and h's once
-    assert toy_msm["counters"] == {"h2d_bytes": 2 * toy_msm["sched_bytes"]}
+    # a batch uploads z's shared schedule once and h's once, both made by
+    # the C++ tier (the default scheduler of a CPU table): two batches,
+    # four schedules
+    assert toy_msm["counters"] == {"h2d_bytes": 2 * toy_msm["sched_bytes"],
+                                   "sched_host": 4}
 
 
 def _leaves(rs, i):
