@@ -242,6 +242,41 @@ class EncodedPoints:
     def __len__(self):
         return self.n
 
+    @classmethod
+    def from_affine_words(cls, curve, words) -> "EncodedPoints":
+        """The table of affine canonical 32-bit words as the keygen kernel
+        returns them (ops/fixed_base.py `mul_digits`, a tensor or array):
+        (n, 2, d, 10), x then y, the point at infinity zero with bit 31
+        of x's top word set.  Builds no host point objects."""
+        if hasattr(words, "cpu"):
+            words = words.cpu().numpy()
+        w = np.array(words).view(np.uint32)              # a copy
+        n, two, d, nw = w.shape
+        out = object.__new__(cls)
+        out.curve = curve
+        out.handle, out.deg, _ = curve_handle(curve)
+        if (two, d, nw) != (2, out.deg, 2 * NL):
+            raise ValueError(f"affine words of {curve.name}: (n, 2, "
+                             f"{out.deg}, {2 * NL}), not {w.shape}")
+        out.inf = (w[:, 0, 0, -1] >> 31).astype(np.uint8)
+        w[:, 0, 0, -1] &= np.uint32(0x7FFFFFFF)
+        xy = w.reshape(n, -1).view("<u8")
+        out.xs = np.ascontiguousarray(xy[:, : NL * d])
+        out.ys = np.ascontiguousarray(xy[:, NL * d:])
+        out.n = n
+        return out
+
+    def pad_front(self, k: int) -> "EncodedPoints":
+        """k points at infinity, then this table's rows (a copy)."""
+        out = object.__new__(EncodedPoints)
+        out.curve, out.handle, out.deg = self.curve, self.handle, self.deg
+        pad = np.zeros((k, self.xs.shape[1]), dtype=self.xs.dtype)
+        out.xs = np.concatenate([pad, self.xs])
+        out.ys = np.concatenate([pad, self.ys])
+        out.inf = np.concatenate([np.ones(k, np.uint8), self.inf])
+        out.n = self.n + k
+        return out
+
     def slice(self, start: int, stop: int) -> "EncodedPoints":
         """Zero-copy subrange view (KZG shifted-power rows)."""
         out = object.__new__(EncodedPoints)

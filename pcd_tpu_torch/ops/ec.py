@@ -43,6 +43,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..curves.jacobian import jacobian
 from .field import _LAUNCHES, _PLAIN, INF_BIT, NLIMB, FieldCtx, ints_to_limbs
 
 
@@ -170,6 +171,17 @@ class ECCtx:
             return self.curve.infinity()
         zi = z.inv()
         return self.curve.point(x * zi, y * zi)
+
+    def decode_jacobian(self, P) -> list:
+        """(n, 3, d, 10) Montgomery limbs -> n points of the host's
+        Jacobian arithmetic (curves/jacobian.py), None at infinity; no
+        inversion."""
+        jac, d = jacobian(self.curve), self.d
+        vals = self.f.decode_ints(np.asarray(P, dtype=np.int32))
+        if d > 1:
+            vals = [tuple(vals[k:k + d]) for k in range(0, len(vals), d)]
+        return [jac.of_projective(*vals[i:i + 3])
+                for i in range(0, len(vals), 3)]
 
     def identity(self, shape, device) -> torch.Tensor:
         """(*shape, 3, d, 10) copies of (0 : 1 : 0), built on `device`

@@ -32,6 +32,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..curves.jacobian import jacobian
 from ..utils.profiling import count, span
 from .ec import ec_ctx
 
@@ -333,17 +334,15 @@ class StreamMSMCtx:
     def horner_host(self, wsn, act=None) -> object:
         """sum_w 2^(c w) W_w over the window sums wsn, row i the sum of
         window act[i] (every window when act is None); the others are the
-        identity and only pay their doublings."""
+        identity and only pay their doublings.  In Jacobian coordinates
+        (curves/jacobian.py), one inversion in all; the sum is held to
+        the curve equation."""
+        pts = self.ec.decode_jacobian(wsn) if len(wsn) else []
         pos = {w: i for i, w in enumerate(
             range(self.nwin) if act is None else act)}
-        acc = self.curve.infinity()
-        for w in reversed(range(self.nwin)):
-            for _ in range(self.c):
-                acc = acc.double()
-            i = pos.get(w)
-            if i is not None:
-                acc = acc + self.ec.decode_point(wsn[i])
-        return acc
+        return jacobian(self.curve).horner(self.c, (
+            [pts[pos[w]]] if w in pos else []
+            for w in reversed(range(self.nwin))))
 
     # -- entry points -------------------------------------------------------
     def msm_limbs(self, table, limbs: np.ndarray, inf=None):

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..curves.jacobian import jacobian
 from ..ops.msm_stream import StreamMSMCtx, stream_ctx
 from .mesh import Mesh
 
@@ -157,13 +158,10 @@ class ShardedStreamMSM:
         """sum_w 2^(c w) sum_r g[r, w] over the gathered (size, nwin, 3,
         d, 10) window sums."""
         sctx = self.sctx
-        acc = sctx.curve.infinity()
-        for w in reversed(range(sctx.nwin)):
-            for _ in range(sctx.c):
-                acc = acc.double()
-            for r in range(g.shape[0]):
-                acc = acc + sctx.ec.decode_point(g[r, w])
-        return acc
+        pts = sctx.ec.decode_jacobian(g.reshape((-1,) + g.shape[2:]))
+        nwin = sctx.nwin
+        return jacobian(sctx.curve).horner(sctx.c, (
+            pts[w::nwin] for w in reversed(range(nwin))))
 
     # -- entry points ---------------------------------------------------------
     def msm_limbs(self, table, limbs):

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ...curves import jacobian
 from ...msm.host import msm as host_msm
 from ...poly.domain import EvaluationDomain
 from ...r1cs.system import ConstraintSystem
@@ -524,7 +525,20 @@ class Groth16:
                 raise RuntimeError("commitment MSMs missing from the "
                                    "stream tier: " + ", ".join(missing))
 
+        # the key's fixed points times r and s need no MSM: they are taken
+        # while the card works through the queued MSMs
+        mul = jacobian.mul
+        with span("proof_fixed"):
+            d1r, d1s = mul(pk.delta_g1, r), mul(pk.delta_g1, s)
+            d1rs = mul(pk.delta_g1, r * s % p)
+            d2s = mul(pk.vk.delta_g2, s)
+
+        # collected in the card's order, so that each Horner tail runs
+        # while the card works on the next MSM
+        ma = msm_q("a_query", zq, "msm_a")
+        mb1 = msm_q("b_g1_query", zq, "msm_b1")
         mb2 = msm_q("b_g2_query", zq, "msm_b2")
+        ml = msm_q("l_query", zq[n_inst:], "msm_l")
         from ...native import EncodedPoints
 
         mh = None
@@ -546,15 +560,13 @@ class Groth16:
                     with span("msm_h"):
                         mh = self.msm([a for a, _ in nz],
                                       [b for _, b in nz])
-        ma = msm_q("a_query", zq, "msm_a")
-        mb1 = msm_q("b_g1_query", zq, "msm_b1")
-        ml = msm_q("l_query", zq[n_inst:], "msm_l")
 
-        g_a = pk.vk.alpha_g1 + ma + pk.delta_g1 * r
-        g_b2 = pk.vk.beta_g2 + mb2 + pk.vk.delta_g2 * s
-        g_b1 = pk.beta_g1 + mb1 + pk.delta_g1 * s
-        c_acc = ml if mh is None else ml + mh
-        g_c = c_acc + g_a * s + g_b1 * r - pk.delta_g1 * (r * s % p)
+        with span("proof_assemble"):
+            g_a = pk.vk.alpha_g1 + ma + d1r
+            g_b2 = pk.vk.beta_g2 + mb2 + d2s
+            g_b1 = pk.beta_g1 + mb1 + d1s
+            c_acc = ml if mh is None else ml + mh
+            g_c = c_acc + mul(g_a, s) + mul(g_b1, r) - d1rs
 
         return Groth16Proof(a=g_a, b=g_b2, c=g_c)
 

@@ -118,7 +118,9 @@ def host_query(owner, name: str):
     """owner.<name> is a FIXED host point list consumed by repeated MSMs
     (a pk query table).  Returns a pre-marshalled EncodedPoints cached on
     the owner — the Python-side marshalling of a production-size table
-    costs more than the native MSM itself."""
+    costs more than the native MSM itself.  A table that is already an
+    EncodedPoints (say `EncodedPoints.from_affine_words` of the keygen
+    kernel's output) is returned as it is."""
     q = getattr(owner, name)
     if not isinstance(q, list):
         return q
@@ -237,12 +239,18 @@ def zpad_query(pk, nm: str, n_inst: int, curve) -> str:
     """Name of pk's query `nm` realigned to the full z vector.  A query
     over the witness columns only (z[n_inst:]) gets n_inst
     flagged-infinity rows in front, cached on the pk as `<nm>_zpad`, so
-    it shares the schedule of the queries over all of z."""
+    it shares the schedule of the queries over all of z.  A host point
+    list gets host points at infinity; an EncodedPoints table, encoded
+    rows flagged at infinity."""
+    from ..native import EncodedPoints
+
     if not n_inst:
         return nm
     pad = nm + "_zpad"
     if not hasattr(pk, pad):
-        setattr(pk, pad, [curve.infinity()] * n_inst + list(getattr(pk, nm)))
+        q = getattr(pk, nm)
+        setattr(pk, pad, q.pad_front(n_inst) if isinstance(q, EncodedPoints)
+                else [curve.infinity()] * n_inst + list(q))
     return pad
 
 
@@ -250,7 +258,8 @@ def stream_launch(pk, queries, h_curve, scalar_bits: int, z_limbs, device,
                   sched_stream=None):
     """Build the stream tables of `queries` ((name, curve) pairs) and of
     h_query, then enqueue the queries' MSMs against z_limbs, one shared
-    schedule (on `sched_stream`, see `schedule`), without waiting.
+    schedule (on `sched_stream`, see `schedule`) and one digest of
+    z_limbs, without waiting.
     Opens a profiling request unless one is held (utils/profiling.py): the
     futures, and the h MSM dispatched after, carry it.  Returns {name:
     future}."""
@@ -258,12 +267,13 @@ def stream_launch(pk, queries, h_curve, scalar_bits: int, z_limbs, device,
     for nm, curve in tuple(queries) + (("h_query", h_curve),):
         stream_table(pk, nm, curve, scalar_bits, device)
     futs = {}
-    sched_cache = {}
+    sched_cache, digests = {}, {}
     with span("stream_dispatch"):
         for nm, curve in queries:
             futs[nm] = stream_msm_async(pk, nm, curve, scalar_bits, z_limbs,
                                         device, sched_cache=sched_cache,
-                                        sched_stream=sched_stream)
+                                        sched_stream=sched_stream,
+                                        digests=digests)
     return futs
 
 
@@ -297,7 +307,7 @@ def stream_table(pk, nm: str, curve, scalar_bits: int, device):
 
 def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                      device, sched_cache=None, offset=None,
-                     sched_stream=None):
+                     sched_stream=None, digests=None):
     """Enqueue one query MSM on the stream tier without waiting; returns
     a future for stream_collect.  scal_limbs: (n, NL) u64 canonical limbs
     (truncated to the table length; fewer scalars than points raises),
@@ -318,11 +328,16 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
     a digest of its limbs (the reference keys on (c, L, qn) alone, which is
     right only while every caller passes the same z).
 
+    digests: optional dict beside sched_cache that keeps each digest by
+    the vector's id, so a vector is digested once; the caller holds every
+    vector it passes, unchanged, for the dict's life.
+
     sched_stream: the stream `schedule` reads the scalars on (None: the
     current one).
 
     The future carries the thread's profiling request, which
-    `stream_collect` resumes."""
+    `stream_collect` resumes; counter msm_rows.<curve name> counts the
+    MSM's rows."""
     sctx, table, _ = stream_table(pk, nm, curve, scalar_bits, device)
     qn = len(getattr(pk, nm))
     on_dev = isinstance(scal_limbs, torch.Tensor)
@@ -340,10 +355,16 @@ def stream_msm_async(pk, nm: str, curve, scalar_bits: int, scal_limbs,
                              f"{offset + qn}) outside its "
                              f"{table.shape[0]} points")
         table = table[offset:offset + qn]
+    count("msm_rows." + curve.name, qn)
     sched = key = None
     if sched_cache is not None:
-        with span("sched_digest"):
-            key = schedule_key(sctx, sl)
+        seen = (id(scal_limbs), offset, qn, sctx.c, sctx.L)
+        key = None if digests is None else digests.get(seen)
+        if key is None:
+            with span("sched_digest"):
+                key = schedule_key(sctx, sl)
+            if digests is not None:
+                digests[seen] = key
     if key is not None:
         sched = sched_cache.get(key)
     if sched is None:

@@ -4,7 +4,9 @@ same text as their modules.  Each copy of `pcd_tpu/<path>` lives at
 ("The port's copy of `pcd_tpu/<path>`; ...") and by the hunks listed in
 EDITED: the per-process temporaries of `pcd/ec_cycle.py` (its placeholder
 cache) and `native/__init__.py` (its build), the port's profiling of both
-(a step's request, the spans of the stream-MSM schedule), the docstrings of
+(a step's request, the spans of the stream-MSM schedule), the
+`EncodedPoints` table made from the keygen kernel's words and padded in
+front with points at infinity (`native/__init__.py`), the docstrings of
 `fields/constants.py` and `fields/prime.py`, which name the reference by
 its name and not by a path, and the absolute imports of
 `parallel/farm.py`'s workers, which rebuild the pk from the port's
@@ -64,6 +66,49 @@ EDITED = {
           '    tmp = f"{so}.{os.getpid()}.tmp"'), "e3b0c44298fc1c14"),
         (('             "-o", tmp],',), "8d3c5a5215aa39f2"),
         (("        os.replace(tmp, so)",), "d5849a0bbd373184"),
+        (("",
+          "    @classmethod",
+          '    def from_affine_words(cls, curve, words) -> "EncodedPoints":',
+          '        """The table of affine canonical 32-bit words as the '
+          "keygen kernel",
+          "        returns them (ops/fixed_base.py `mul_digits`, a "
+          "tensor or array):",
+          "        (n, 2, d, 10), x then y, the point at infinity zero "
+          "with bit 31",
+          '        of x\'s top word set.  Builds no host point objects."""',
+          '        if hasattr(words, "cpu"):',
+          "            words = words.cpu().numpy()",
+          "        w = np.array(words).view(np.uint32)              # a copy",
+          "        n, two, d, nw = w.shape",
+          "        out = object.__new__(cls)",
+          "        out.curve = curve",
+          "        out.handle, out.deg, _ = curve_handle(curve)",
+          "        if (two, d, nw) != (2, out.deg, 2 * NL):",
+          '            raise ValueError(f"affine words of {curve.name}: '
+          '(n, 2, "',
+          '                             f"{out.deg}, {2 * NL}), not '
+          '{w.shape}")',
+          "        out.inf = (w[:, 0, 0, -1] >> 31).astype(np.uint8)",
+          "        w[:, 0, 0, -1] &= np.uint32(0x7FFFFFFF)",
+          '        xy = w.reshape(n, -1).view("<u8")',
+          "        out.xs = np.ascontiguousarray(xy[:, : NL * d])",
+          "        out.ys = np.ascontiguousarray(xy[:, NL * d:])",
+          "        out.n = n",
+          "        return out",
+          "",
+          '    def pad_front(self, k: int) -> "EncodedPoints":',
+          '        """k points at infinity, then this table\'s rows (a '
+          'copy)."""',
+          "        out = object.__new__(EncodedPoints)",
+          "        out.curve, out.handle, out.deg = self.curve, "
+          "self.handle, self.deg",
+          "        pad = np.zeros((k, self.xs.shape[1]), dtype=self.xs.dtype)",
+          "        out.xs = np.concatenate([pad, self.xs])",
+          "        out.ys = np.concatenate([pad, self.ys])",
+          "        out.inf = np.concatenate([np.ones(k, np.uint8), self.inf])",
+          "        out.n = self.n + k",
+          "        return out"),
+         "e3b0c44298fc1c14"),
         (('    with span("sched_fit"):',
           "        T = lib.pcd_msm_schedule(n, c, nwin, L, B, 0, cw, "
           "_u64p(limbs), nl,",

@@ -5,8 +5,9 @@ nest with their parents and requests, totals keep their "/"-joined
 names, nothing is kept with recording off, the cap counts what it drops,
 threads keep their own parents, one request runs from `stream_launch`
 through the h dispatch to every collect, the counter h2d_bytes is the
-schedule arrays' bytes, the leaf spans tile the dispatch, and the anchor
-maps the records onto a torch.profiler trace's annotations."""
+schedule arrays' bytes and msm_rows.<curve> the MSMs' rows, the leaf
+spans tile the dispatch, and the anchor maps the records onto a
+torch.profiler trace's annotations."""
 
 import json
 import statistics
@@ -231,9 +232,10 @@ def test_request_runs_from_launch_to_collect(toy_msm):
 def test_h2d_bytes_is_the_schedules_bytes(toy_msm):
     # a batch uploads z's shared schedule once and h's once, both made by
     # the C++ tier (the default scheduler of a CPU table): two batches,
-    # four schedules
+    # four schedules; and the MSMs' rows, 96 of a and 64 of h a batch
+    rows = "msm_rows." + TM.toy_cycle().main.g1.name
     assert toy_msm["counters"] == {"h2d_bytes": 2 * toy_msm["sched_bytes"],
-                                   "sched_host": 4}
+                                   "sched_host": 4, rows: 2 * (96 + 64)}
 
 
 def _leaves(rs, i):
